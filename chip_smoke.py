@@ -1,0 +1,469 @@
+"""Run the PyTorch port's dataplane on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises, so the script exits non-zero):
+
+1. Card and build: the card's name and power limit (``nvidia-smi``), then
+   ``nvcc`` builds the CUDA kernels from ``src/repro_torch/csrc``.
+2. Kernels against their plain PyTorch versions on the card, at the main
+   path's shapes plus edge cases (B = 256 and 264, M = 4096, W = 160 and
+   352, R = 1 and 20, duplicate and masked rows), compared exactly.  Each
+   kernel is timed (median of 30 launches, CUDA events) beside its plain
+   version, one PyTorch library call where one computes the same function,
+   and its bound: the larger of the bytes it must move over 3.35 TB/s and
+   its 32-bit operations over 67 T/s.
+3. The quickstart flow at full width (enterprise, 256 packets, default
+   ParkConfig, Firewall -> NAT): Split, chain and Merge on the card,
+   wire-identical to the chain run on whole packets.
+4. The engine at full geometry: ``run_pipes`` with 8 pipes over 16384
+   steered enterprise packets (chunk 256, window 2, capacity 4096,
+   max_exp 2, pmax 2048, 20 firewall rules -> NAT), and ``run_engine`` with
+   one recirculating pipe (352-byte rows), each on the card with the
+   kernels and on the CPU with the plain versions from the same seeded
+   inputs; counters, telemetry, NF counters, occupancy and merged wire
+   bytes must be identical, the goodput gain positive, and every kernel
+   launched during each card run.  The first steps of the 8-pipe run are
+   then repeated under ``torch.profiler`` to count device kernels per step
+   and the device's busy time against the untraced wall time.
+5. A ``kernels`` JSON line, the card line, and the final ``ok`` line.
+
+Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12      # non-tensor 32-bit rate, the same data sheet
+# 32-bit integer operations per packet: crc16 takes 4 byte extractions
+# (2 ops), and per byte a shift and xor plus 8 steps of shift, mask, shift,
+# mask and a conditional xor; acl_match a compare and an or per rule.
+CRC16_OPS = 4 * 2 + 4 * (2 + 8 * 5)
+SEED = 20200611
+PROFILE_STEPS = 4  # traced steps of the 8-pipe run (each traced step costs
+                   # ~24k device kernels of profiler bookkeeping)
+REPLACES = {
+    "crc16": "src/repro/kernels/crc16/kernel.py:40",
+    "payload_store": "src/repro/kernels/payload_store/kernel.py:49",
+    "payload_fetch": "src/repro/kernels/payload_fetch/kernel.py:49",
+    "acl_match": "src/repro/kernels/acl_match/kernel.py:28",
+}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, reps: int = 30) -> float:
+    """Median device time of one call of ``fn``, in ms.  A sleep kernel
+    keeps the card busy while the host enqueues each call, so the events
+    bracket device work and not launch latency."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    cycles = int(host_s * 4e9) + 200_000
+    pairs = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def must_equal(name: str, got, want) -> int:
+    got, want = torch.as_tensor(got).cpu(), torch.as_tensor(want).cpu()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs "
+                             f"{want.shape}/{want.dtype}")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() else 0
+    if err:
+        raise AssertionError(f"{name}: kernel differs from plain version, "
+                             f"max abs err {err}")
+    return err
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def store_inputs(gen, pipes, b, m, w, dev, dups=True):
+    table = torch.randint(0, 256, (pipes, m, w), generator=gen,
+                          dtype=torch.uint8)
+    payload = torch.randint(0, 256, (pipes, b, w), generator=gen,
+                            dtype=torch.uint8)
+    idx = torch.stack([torch.randperm(m, generator=gen)[:b]
+                       for _ in range(pipes)]).to(torch.int32)
+    enb = torch.rand((pipes, b), generator=gen) < 0.7
+    if dups:  # duplicate enabled rows, and rows out of range
+        idx[:, 5] = idx[:, 1]
+        idx[:, 9] = idx[:, 1]
+        enb[:, [1, 5, 9]] = True
+        idx[:, 12] = -1
+        idx[:, 13] = m + 3
+    return [x.to(dev) for x in (table, payload, idx, enb)]
+
+
+def fetch_inputs(gen, pipes, b, m, w, dev):
+    table = torch.randint(0, 256, (pipes, m, w), generator=gen,
+                          dtype=torch.uint8)
+    idx = torch.stack([torch.randperm(m - 1, generator=gen)[:b]
+                       for _ in range(pipes)]).to(torch.int32)
+    mask = torch.rand((pipes, b), generator=gen) < 0.6
+    idx = torch.where(mask, idx, 0)   # masked-off rows carry pp_ti = 0
+    idx[:, 3] = m + 7                 # matched, out of range: clamped read
+    mask[:, 3] = True
+    return [x.to(dev) for x in (table, idx, mask)]
+
+
+def check_kernels(dev) -> dict:
+    from repro_torch.backend import ref as R
+    from repro_torch.kernels import acl_match, crc16, payload_fetch
+    from repro_torch.kernels import payload_store
+
+    gen = torch.Generator().manual_seed(SEED)
+    err = dict.fromkeys(REPLACES, 0)
+    for n in (256, 264, 2048):
+        ti = torch.randint(0, 65536, (n,), generator=gen, dtype=torch.int32)
+        clk = torch.randint(1, 65536, (n,), generator=gen, dtype=torch.int32)
+        ti, clk = ti.to(dev), clk.to(dev)
+        err["crc16"] = max(err["crc16"], must_equal(
+            f"crc16 n={n}", crc16.crc16_tag_cuda(ti, clk),
+            R.crc16_tag(ti, clk)))
+    for b in (256, 264):
+        for r in (1, 20):
+            ip = torch.randint(0, 64, (8, b), generator=gen,
+                               dtype=torch.int32).to(dev)
+            rules = torch.randint(0, 64, (r,), generator=gen,
+                                  dtype=torch.int32).to(dev)
+            err["acl_match"] = max(err["acl_match"], must_equal(
+                f"acl_match b={b} r={r}", acl_match.acl_match_cuda(ip, rules),
+                R.acl_match(ip, rules)))
+    for pipes, b, w in ((8, 256, 160), (1, 264, 352), (1, 264, 160),
+                        (8, 264, 352)):
+        t, p, i, e = store_inputs(gen, pipes, b, 4096, w, dev)
+        for label, en in (("", e), (" all-off", torch.zeros_like(e))):
+            got = payload_store.payload_store_cuda(t.clone(), p, i, en)
+            want = R.payload_store(t.clone(), p, i, en)
+            err["payload_store"] = max(err["payload_store"], must_equal(
+                f"payload_store {pipes}x{b}x{w}{label}", got, want))
+        t, i, mk = fetch_inputs(gen, pipes, b, 4096, w, dev)
+        for label, mm in (("", mk), (" all-off", torch.zeros_like(mk))):
+            g1, t1 = payload_fetch.payload_fetch_cuda(t.clone(), i, mm)
+            g2, t2 = R.payload_fetch(t.clone(), i, mm)
+            err["payload_fetch"] = max(
+                err["payload_fetch"],
+                must_equal(f"payload_fetch rows {pipes}x{b}x{w}{label}",
+                           g1, g2),
+                must_equal(f"payload_fetch table {pipes}x{b}x{w}{label}",
+                           t1, t2))
+    torch.cuda.synchronize()
+    print("kernels vs plain: exact on every case "
+          "(B 256/264, W 160/352, R 1/20, duplicates, masked, out of range)")
+    return err
+
+
+def time_kernels(dev) -> dict:
+    """Times at the 8-pipe main path shapes: 8 pipes x 256 packets,
+    M = 4096, W = 160, R = 20."""
+    from repro_torch.backend import ref as R
+    from repro_torch.kernels import acl_match, crc16, payload_fetch
+    from repro_torch.kernels import payload_store
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    pipes, b, m, w = 8, 256, 4096, 160
+    rows = {}
+
+    ti = torch.randint(0, 4096, (pipes, b), generator=gen,
+                       dtype=torch.int32).to(dev)
+    clk = torch.randint(1, 65536, (pipes, b), generator=gen,
+                        dtype=torch.int32).to(dev)
+    n = ti.numel()
+    rows["crc16"] = dict(
+        ms=device_ms(lambda: crc16.crc16_tag_cuda(ti, clk)),
+        plain_ms=device_ms(lambda: R.crc16_tag(ti, clk)),
+        library_ms=None, bound_bytes=n * 12, bound_ops=n * CRC16_OPS)
+
+    ip = torch.randint(0, 1 << 30, (pipes, b), generator=gen,
+                       dtype=torch.int32).to(dev)
+    rules = ip.flatten()[:20].clone()
+    rows["acl_match"] = dict(
+        ms=device_ms(lambda: acl_match.acl_match_cuda(ip, rules)),
+        plain_ms=device_ms(lambda: R.acl_match(ip, rules)),
+        library_ms=device_ms(lambda: torch.isin(ip, rules)),
+        bound_bytes=n * 5 + rules.numel() * 4,
+        bound_ops=n * rules.numel() * 2)
+
+    t, p, i, e = store_inputs(gen, pipes, b, m, w, dev, dups=False)
+    flat = t.view(pipes * m, w)
+    pipe_off = (torch.arange(pipes, device=dev) * m)[:, None]
+    sel = e.flatten()
+    lib_rows = (i.to(torch.int64) + pipe_off).flatten()[sel]
+    lib_src = p.reshape(pipes * b, w)[sel]
+    enabled = int(sel.sum())
+    rows["payload_store"] = dict(
+        ms=device_ms(lambda: payload_store.payload_store_cuda(t, p, i, e)),
+        plain_ms=device_ms(lambda: R.payload_store(t, p, i, e)),
+        library_ms=device_ms(lambda: flat.index_copy_(0, lib_rows, lib_src)),
+        bound_bytes=enabled * w * 2 + n * 5, bound_ops=0)
+
+    t, i, mk = fetch_inputs(gen, pipes, b, m, w, dev)
+    matched = int(mk.sum())
+    rows["payload_fetch"] = dict(
+        ms=device_ms(lambda: payload_fetch.payload_fetch_cuda(t, i, mk)),
+        plain_ms=device_ms(lambda: R.payload_fetch(t, i, mk)),
+        library_ms=None,
+        bound_bytes=matched * w * 2 + n * w + n * 5, bound_ops=0)
+    for name, r in rows.items():
+        by_bytes = r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+        by_ops = r["bound_ops"] / FP32_OPS_PER_S * 1e3
+        r["bound_ms"] = max(by_bytes, by_ops)
+        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        print(f"time {name}: kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f}"
+              f" ms, library {r['library_ms']} ms, bound {r['bound_ms']:.6f}"
+              f" ms by {r['bound_by']} ({r['bound_bytes']} bytes, "
+              f"{r['bound_ops']} operations)")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phases 3 and 4: the dataplane on the card
+# --------------------------------------------------------------------------
+
+def quickstart(dev) -> None:
+    from repro_torch.core.packet import wire_bytes
+    from repro_torch.core.park import (ParkConfig, init_state, merge_fn,
+                                       split_fn, stats)
+    from repro_torch.nf.chain import Chain
+    from repro_torch.nf.firewall import Firewall
+    from repro_torch.nf.nat import Nat
+    from repro_torch.switchsim.simulate import baseline_roundtrip
+    from repro_torch.traffic.generator import enterprise
+
+    wl = enterprise()
+    pkts = wl.make_batch(SEED, 256, pmax=2048, device=dev)
+    cfg = ParkConfig()
+    state = init_state(cfg, dev)
+    state, to_server = split_fn(cfg, state, pkts)
+    chain = Chain((Firewall(rules=(int(pkts.src_ip[3]),)), Nat()))
+    cstate, from_server, dropped, _ = chain.run(chain.init_state(dev),
+                                                to_server)
+    state, out = merge_fn(cfg, state, from_server)
+    ref, _, _ = baseline_roundtrip(chain, pkts, device=dev)
+    got, got_len = wire_bytes(out)
+    want, want_len = wire_bytes(ref)
+    if not (torch.equal(got, want) and torch.equal(got_len, want_len)):
+        raise AssertionError("quickstart: merged packets differ on the wire "
+                             "from the whole-packet chain run")
+    print(f"quickstart: {wl.name} (mean {wl.mean_pkt_bytes:.1f} B), "
+          f"wire-identical to the whole-packet chain (paper §6.2.6); "
+          f"{stats(state)}")
+
+
+def same(label: str, a, b) -> None:
+    if isinstance(a, np.ndarray) or torch.is_tensor(a):
+        ok = np.array_equal(np.asarray(torch.as_tensor(a).cpu()),
+                            np.asarray(torch.as_tensor(b).cpu()))
+    else:
+        ok = a == b
+    if not ok:
+        raise AssertionError(f"{label}: card run differs from CPU run")
+
+
+def compare_runs(label, gpu, cpu, per_pipe: bool) -> None:
+    from repro_torch.core.packet import from_time_major, wire_bytes
+    same(f"{label} counters", gpu.counters, cpu.counters)
+    same(f"{label} telemetry", gpu.telemetry, cpu.telemetry)
+    same(f"{label} nf_counters", gpu.nf_counters, cpu.nf_counters)
+    same(f"{label} occ_series", gpu.occ_series, cpu.occ_series)
+    if per_pipe:
+        same(f"{label} per-pipe counters", gpu.per_pipe_counters,
+             cpu.per_pipe_counters)
+        same(f"{label} per-pipe telemetry", gpu.per_pipe_telemetry,
+             cpu.per_pipe_telemetry)
+        same(f"{label} per-pipe nf", gpu.per_pipe_nf_counters,
+             cpu.per_pipe_nf_counters)
+    for what, g, c in zip(("bytes", "lengths"),
+                          wire_bytes(from_time_major(gpu.merged)),
+                          wire_bytes(from_time_major(cpu.merged))):
+        same(f"{label} merged wire {what}", g, c)
+
+
+def sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def device_busy(run, dev) -> dict:
+    """Device kernels and device busy time of one traced run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(dev)
+        sync(dev)
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            acc = by_name.setdefault(e.name, [0, 0.0])
+            acc[0] += 1
+            acc[1] += e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return dict(kernels=sum(v[0] for v in by_name.values()),
+                busy_s=sum(v[1] for v in by_name.values()) / 1e6, top=top)
+
+
+def profile_steps(run, dev, steps: int) -> None:
+    """Device kernels per engine step and the device's idle share, from a
+    traced run of ``steps`` steps timed untraced first."""
+    sync(dev)
+    t0 = time.perf_counter()
+    run(dev)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    prof = device_busy(run, dev)
+    if prof["kernels"] == 0:
+        print("profile: torch.profiler saw no device kernels; device busy "
+              "share not measured")
+        return
+    print(f"profile pipes8, first {steps} steps: {prof['kernels']} device "
+          f"kernels ({prof['kernels'] / steps:.1f} per step), device busy "
+          f"{prof['busy_s']:.6f} s of the untraced {wall:.6f} s: idle share "
+          f"{1 - prof['busy_s'] / wall:.6f}")
+    for name, (cnt, us) in prof["top"]:
+        print(f"  {us / 1e3:12.3f} ms {cnt:8d}x {name[:90]}")
+
+
+def engine(dev, packets: int = 16384) -> dict:
+    from repro_torch.core.packet import map_fields, to_time_major
+    from repro_torch.core.park import ParkConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.nf.chain import Chain
+    from repro_torch.nf.firewall import Firewall
+    from repro_torch.nf.nat import Nat
+    from repro_torch.switchsim.engine import (goodput_gain, run_engine,
+                                              run_pipes)
+    from repro_torch.traffic.generator import enterprise, steer_pipes
+
+    chunk, window, pipes = 256, 2, 8
+    pkts = enterprise().make_batch(SEED + 2, packets, pmax=2048,
+                                   device="cpu")
+    rules = tuple(int(v) for v in torch.unique(pkts.src_ip)[:20].tolist())
+    chain = Chain((Firewall(rules=rules), Nat()))
+    shards, st = steer_pipes(pkts, pipes, chunk=chunk)
+    traces = map_fields(
+        lambda n, a: a.reshape((pipes, a.shape[1] // chunk, chunk)
+                               + a.shape[2:]), shards)
+    cfg = ParkConfig(capacity=4096, max_exp=2, pmax=2048)
+    steps = traces.src_ip.shape[1]
+    print(f"engine: {packets} enterprise packets steered to {pipes} pipes, "
+          f"{steps} steps of {chunk} per pipe (capacity {st['pipe_capacity']}"
+          f", overflow {st['overflow']}), window {window}, 20 rules -> NAT")
+
+    counts = {}
+    runs = (
+        ("pipes8", lambda d: run_pipes(cfg, chain, traces, window=window,
+                                       device=d), True),
+        ("recirc1", lambda d: run_engine(
+            ParkConfig(capacity=4096, max_exp=2, pmax=2048,
+                       recirculation=True), chain,
+            to_time_major(pkts, chunk), window=window, device=d), False),
+    )
+    for label, run, per_pipe in runs:
+        sync(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        gpu = run(dev)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts[label] = launch_counts()
+        t0 = time.perf_counter()
+        cpu = run("cpu")
+        cpu_wall = time.perf_counter() - t0
+        compare_runs(label, gpu, cpu, per_pipe)
+        gain = goodput_gain(gpu)["goodput_gain"]
+        if not gain > 0:
+            raise AssertionError(f"{label}: goodput gain {gain} <= 0")
+        missing = [k for k, v in counts[label].items() if v == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched on the "
+                                 f"card: {missing}")
+        pps = gpu.telemetry.wire_pkts / wall
+        print(f"engine {label}: card {wall:.3f} s ({pps:.1f} offered pkt/s),"
+              f" CPU {cpu_wall:.3f} s, goodput_gain {gain:.6f}, counters "
+              f"{gpu.counters}, launches {counts[label]}; identical to the "
+              "CPU run")
+        if label == "pipes8":
+            profile_steps(lambda d: run_pipes(
+                cfg, chain, map_fields(lambda n, a: a[:, :PROFILE_STEPS],
+                                       traces), window=window, device=d),
+                dev, PROFILE_STEPS + window)
+    return counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    build.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s "
+          f"({build.build().name})")
+    print((build.BUILD_DIR / "build.log").read_text()
+          if (build.BUILD_DIR / "build.log").exists() else "build: cached")
+
+    err = check_kernels(dev)
+    times = time_kernels(dev)
+    quickstart(dev)
+    counts = engine(dev)
+
+    kernels = []
+    for name in ("crc16", "payload_store", "payload_fetch", "acl_match"):
+        r = times[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/csrc/{name}.cu",
+            replaces=REPLACES[name], launches=counts["pipes8"][name],
+            launches_recirc=counts["recirc1"][name],
+            max_abs_err=err[name], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

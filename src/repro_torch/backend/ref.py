@@ -1,0 +1,135 @@
+"""Plain PyTorch versions of every dataplane primitive (port of
+``repro.backend.ref``).
+
+One function per registry primitive.  They run on CPU tensors by default
+and on CUDA tensors only when ``backend="ref"`` is chosen explicitly; each
+CUDA kernel in ``repro_torch.kernels`` must match its primitive here
+bit-exactly.  Every function accepts leading batch (pipe) dimensions.
+
+Index rules follow the reference exactly: a negative index counts from the
+end (``i + n``), an out-of-range read is clamped and an out-of-range write
+is dropped.  ``payload_store``/``payload_fetch`` update ``table`` in place
+(the port's counterpart of the reference's donated table buffer) and
+return it.
+"""
+from __future__ import annotations
+
+import torch
+
+# ---------------------------------------------------------------------------
+# crc16_tag — PayloadPark header tag CRC (paper §3.2, Fig. 2)
+# ---------------------------------------------------------------------------
+
+CRC_POLY = 0x1021
+CRC_INIT = 0xFFFF
+
+
+def crc16_bytes(data: torch.Tensor) -> torch.Tensor:
+    """CRC-16/CCITT-FALSE over the trailing axis of byte values in
+    [0, 255]: (..., N) -> (...,) int32, bit by bit."""
+    data = data.to(torch.int32)
+    crc = torch.full(data.shape[:-1], CRC_INIT, dtype=torch.int32,
+                     device=data.device)
+    for i in range(data.shape[-1]):
+        crc = crc ^ (data[..., i] << 8)
+        for _ in range(8):
+            hi = (crc >> 15) & 1
+            crc = (crc << 1) & 0xFFFF
+            crc = torch.where(hi == 1, crc ^ CRC_POLY, crc)
+    return crc
+
+
+def tag_bytes(ti: torch.Tensor, clk: torch.Tensor) -> torch.Tensor:
+    """(ti, clk) as 4 little-endian bytes: (..., 4) int32."""
+    ti = ti.to(torch.int32)
+    clk = clk.to(torch.int32)
+    return torch.stack(
+        [ti & 0xFF, (ti >> 8) & 0xFF, clk & 0xFF, (clk >> 8) & 0xFF], dim=-1)
+
+
+def crc16_tag(ti: torch.Tensor, clk: torch.Tensor) -> torch.Tensor:
+    """CRC over the PayloadPark tag: (...,) int32."""
+    return crc16_bytes(tag_bytes(ti, clk))
+
+
+# ---------------------------------------------------------------------------
+# acl_match — firewall blocked-IP linear probe (paper §6.1)
+# ---------------------------------------------------------------------------
+
+def acl_match(src_ip: torch.Tensor, rules: torch.Tensor) -> torch.Tensor:
+    """src_ip: (...,) int32; rules: (R,) int32 -> (...,) bool blocked."""
+    return (src_ip[..., None] == rules).any(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# maglev_select — L4-LB backend selection (paper §6.1, Maglev NSDI'16)
+# ---------------------------------------------------------------------------
+
+def maglev_hash5(src_ip, dst_ip, src_port, dst_port, proto) -> torch.Tensor:
+    """int32 5-tuple hash; the multiply wraps like uint32."""
+    h = src_ip.to(torch.int32)
+    for v in (dst_ip, src_port, dst_port, proto):
+        h = (h * 1000003) ^ v.to(torch.int32)
+    return h & 0x7FFFFFFF
+
+
+def maglev_select(src_ip, dst_ip, src_port, dst_port, proto,
+                  table, backend_ips) -> torch.Tensor:
+    """Backend VIP per packet: hash the 5-tuple, index the lookup table."""
+    h = maglev_hash5(src_ip, dst_ip, src_port, dst_port, proto)
+    idx = torch.remainder(h, table.shape[0]).to(torch.int64)
+    return backend_ips[table[idx].to(torch.int64)]
+
+
+# ---------------------------------------------------------------------------
+# payload_store / payload_fetch — parked-payload movement (paper Fig. 4)
+# ---------------------------------------------------------------------------
+
+def norm_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Negative indices count from the end, as in the reference."""
+    return torch.where(idx < 0, idx + n, idx)
+
+
+def _rows_of(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """table (..., M, W) gathered at rows (..., K) -> (..., K, W)."""
+    i = rows.to(torch.int64)[..., None].expand(rows.shape + table.shape[-1:])
+    return torch.gather(table, -2, i)
+
+
+def payload_store(table, payload, idx, enb) -> torch.Tensor:
+    """Split stage 3..N: ``table[idx[b]] = payload[b]`` where ``enb[b]``,
+    in place.  table: (..., M, W); payload: (..., B, W); idx, enb: (..., B).
+
+    Duplicate enabled rows resolve as the sequential TPU kernel does — the
+    last writer wins — through a per-row max over packet positions, so the
+    result does not depend on scatter order on any device."""
+    m = table.shape[-2]
+    b = idx.shape[-1]
+    rows = norm_index(idx.to(torch.int64), m)
+    ok = enb & (rows >= 0) & (rows < m)
+    order = torch.arange(b, device=idx.device).expand(idx.shape)
+    winner = torch.full(table.shape[:-1], -1, dtype=torch.int64,
+                        device=table.device)
+    winner.scatter_reduce_(-1, rows.clamp(0, m - 1),
+                           torch.where(ok, order, -1), reduce="amax")
+    new = _rows_of(payload, winner.clamp(min=0))
+    table.copy_(torch.where((winner >= 0)[..., None], new, table))
+    return table
+
+
+def payload_fetch(table, idx, mask):
+    """Merge stage 3..N gather + clear (Alg. 2 lines 21-23), in place.
+
+    Returns ``(gathered (..., B, W), table)``: rows where ``mask`` is unset
+    gather zeros and leave the table untouched."""
+    m = table.shape[-2]
+    rows = norm_index(idx.to(torch.int64), m)
+    gathered = _rows_of(table, rows.clamp(0, m - 1))
+    gathered = torch.where(mask[..., None], gathered, 0).to(table.dtype)
+    wr = mask & (rows >= 0) & (rows < m)
+    clear = torch.zeros(table.shape[:-1], dtype=torch.int32,
+                        device=table.device)
+    clear.scatter_reduce_(-1, rows.clamp(0, m - 1), wr.to(torch.int32),
+                          reduce="amax")
+    table.masked_fill_(clear.bool()[..., None], 0)
+    return gathered, table

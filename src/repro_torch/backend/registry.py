@@ -1,0 +1,84 @@
+"""The dataplane-primitive registry: one plain version and one CUDA kernel
+per primitive (port of ``repro.backend.registry``).
+
+``dispatch(name, backend)`` is the single switch every hot-path call site
+goes through.  ``ref`` returns the plain PyTorch version, ``cuda`` the
+kernel launcher (which raises on CPU tensors), and ``auto`` the kernel
+module's own entry, which picks the plain version for CPU tensors and the
+kernel for CUDA tensors.  The kernel modules are imported lazily, inside
+the wrappers, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from repro_torch.backend import ref as R
+from repro_torch.backend.config import PRIMITIVES, as_config
+
+
+@dataclasses.dataclass(frozen=True)
+class Primitive:
+    """One registry entry: the plain version, the kernel launcher and the
+    device-resolved ``auto`` entry."""
+
+    name: str
+    ref: Callable
+    cuda: Callable
+    auto: Callable
+
+
+def _kernel(module: str, fn: str) -> Callable:
+    def call(*args):
+        import importlib
+        mod = importlib.import_module(f"repro_torch.kernels.{module}")
+        return getattr(mod, fn)(*args)
+    call.__name__ = f"{module}.{fn}"
+    return call
+
+
+def _maglev_not_ported(*_args):
+    raise NotImplementedError(
+        "maglev_select has no CUDA kernel yet: it arrives with the FW->NAT->LB "
+        "slice (repro/kernels/maglev/kernel.py::maglev_kernel); use "
+        "backend='ref'")
+
+
+def _maglev_auto(*args):
+    if args[0].device.type == "cpu":
+        return R.maglev_select(*args)
+    return _maglev_not_ported(*args)
+
+
+_REGISTRY: dict[str, Primitive] = {
+    p.name: p for p in (
+        Primitive("crc16_tag", R.crc16_tag,
+                  _kernel("crc16", "crc16_tag_cuda"),
+                  _kernel("crc16", "crc16_tag")),
+        Primitive("acl_match", R.acl_match,
+                  _kernel("acl_match", "acl_match_cuda"),
+                  _kernel("acl_match", "acl_match")),
+        Primitive("maglev_select", R.maglev_select, _maglev_not_ported,
+                  _maglev_auto),
+        Primitive("payload_store", R.payload_store,
+                  _kernel("payload_store", "payload_store_cuda"),
+                  _kernel("payload_store", "payload_store")),
+        Primitive("payload_fetch", R.payload_fetch,
+                  _kernel("payload_fetch", "payload_fetch_cuda"),
+                  _kernel("payload_fetch", "payload_fetch")),
+    )
+}
+
+assert tuple(_REGISTRY) == PRIMITIVES, (tuple(_REGISTRY), PRIMITIVES)
+
+
+def primitive(name: str) -> Primitive:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown primitive {name!r} (have {PRIMITIVES})")
+    return _REGISTRY[name]
+
+
+def dispatch(name: str, backend=None) -> Callable:
+    """Resolve one primitive to the callable its backend selects."""
+    prim = primitive(name)
+    return getattr(prim, as_config(backend).mode(name))

@@ -1,0 +1,95 @@
+"""Carry state across from the reference package through numpy.
+
+The reference's packets, switch state and NF-chain states are pytrees of
+arrays; ``np.asarray`` turns each leaf into numpy.  These helpers build the
+port's counterparts from such objects (anything with the same attribute or
+key names whose leaves ``np.asarray`` accepts), so the same numbers feed
+both packages.  Nothing here imports the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.packet import FIELDS, PacketBatch
+from repro_torch.core.park import ParkState
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.nf.firewall import Firewall
+from repro_torch.nf.nat import Nat
+
+
+def tensor(a, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """One array (numpy, or anything ``np.asarray`` accepts) as a tensor of
+    the same dtype on ``device``."""
+    return torch.from_numpy(np.array(np.asarray(a))).to(
+        resolve_device(device))
+
+
+def _get(src, name):
+    return src[name] if isinstance(src, dict) else getattr(src, name)
+
+
+def packet_batch(src, device=DEFAULT_DEVICE) -> PacketBatch:
+    """A PacketBatch from an object or dict with the PacketBatch fields."""
+    return PacketBatch(**{n: tensor(_get(src, n), device) for n in FIELDS})
+
+
+def park_state(src, device=DEFAULT_DEVICE) -> ParkState:
+    """A ParkState from an object or dict with the ParkState fields."""
+    return ParkState(**{f.name: tensor(_get(src, f.name), device)
+                        for f in dataclasses.fields(ParkState)})
+
+
+def chain_states(nfs: tuple, src_states, device=DEFAULT_DEVICE) -> tuple:
+    """Chain states for ``nfs`` (the port's NF objects) from the
+    reference's per-NF states, in chain order."""
+    out = []
+    for nf, st in zip(nfs, src_states):
+        if isinstance(nf, Firewall):
+            rules = np.asarray(st)
+            out.append(tensor(rules.reshape(-1, rules.shape[-1])[0]
+                              if rules.ndim > 1 else rules, device))
+        elif isinstance(nf, Nat):
+            out.append({k: tensor(v, device) for k, v in st.items()})
+        else:
+            raise TypeError(f"no conversion for NF {type(nf).__name__}")
+    return tuple(out)
+
+
+def numpy_packets(rng: np.random.Generator, batch: int, pmax: int,
+                  sizes=(64, 128, 190, 300, 512, 1024, 1492),
+                  n_ips: int = 1 << 30, n_ports: int = 1 << 15,
+                  alive_frac: float = 1.0) -> dict[str, np.ndarray]:
+    """Fresh UDP packets as numpy arrays keyed by PacketBatch field name,
+    drawn from ``rng``: the common input both packages are fed.  Source
+    addresses and ports come from ``n_ips``/``n_ports`` values so flows
+    repeat when those are small."""
+    size = rng.choice(np.asarray(sizes), batch)
+    plen = np.clip(size - 42, 0, pmax).astype(np.int32)
+    payload = rng.integers(0, 256, (batch, pmax)).astype(np.uint8)
+    payload[np.arange(pmax)[None, :] >= plen[:, None]] = 0
+    z = np.zeros(batch, np.int32)
+
+    def ints(lo, hi):
+        return rng.integers(lo, hi, batch).astype(np.int32)
+
+    return dict(
+        dst_mac=ints(0, (1 << 31) - 1), src_mac=ints(0, (1 << 31) - 1),
+        src_ip=ints(1, 1 + n_ips), dst_ip=ints(0, (1 << 31) - 1),
+        proto=np.full(batch, 17, np.int32),
+        src_port=ints(1024, 1024 + n_ports), dst_port=ints(1024, 65536),
+        payload_len=plen, payload=payload,
+        alive=rng.random(batch) < alive_frac,
+        pp_valid=np.zeros(batch, bool), pp_enb=z, pp_op=z.copy(),
+        pp_ti=z.copy(), pp_clk=z.copy(), pp_crc=z.copy())
+
+
+def as_numpy(obj) -> dict[str, np.ndarray]:
+    """Field name -> numpy array for a PacketBatch or ParkState (either
+    package's), for comparisons."""
+    return {f.name: np.asarray(
+        getattr(obj, f.name).cpu() if torch.is_tensor(getattr(obj, f.name))
+        else getattr(obj, f.name))
+        for f in dataclasses.fields(obj)}

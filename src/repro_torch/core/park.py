@@ -1,0 +1,463 @@
+"""PayloadPark lookup table: Split / Merge / Evict / Explicit-Drop /
+Recirculate (port of ``repro.core.park``, paper Algorithms 1 and 2).
+
+P4 gives atomic, per-packet sequential register semantics (§5).  The
+reference reproduces them with a ``lax.scan`` over packets; the port runs
+the same control passes as plain Python loops over packet positions in
+arrival order, with tensor ops only (no host sync inside a loop).  Every
+tensor may carry leading pipe dimensions, so one loop iteration advances
+all pipes at once.  The bulk payload movement and the tag CRCs route
+through the backend registry (``repro_torch.backend``): CUDA kernels on the
+card, plain PyTorch on the CPU.
+
+The per-slot metadata (expiry, generation clock, parked length) is packed
+into one (..., M, 3) tensor inside a control pass, so each packet costs one
+gather and one scatter.  Index rules follow the reference: a negative tag
+index counts from the end, out-of-range reads clamp and writes drop.
+
+State is consumed: ``split_fn``/``merge_fn``/``recirc_fn`` update the
+payload table of the state they are given in place (the port's counterpart
+of the reference's donated buffers) and return the new state.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.backend.config import as_config
+from repro_torch.backend.ref import norm_index
+from repro_torch.backend.registry import dispatch
+from repro_torch.core import counters as C
+from repro_torch.core.header import crc16_tag, tag_valid
+from repro_torch.core.packet import OP_DROP, FIELDS, PacketBatch
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
+BLOCK_BYTES = 16  # single MAT-cell width (paper Fig. 4)
+PARK_BYTES_BASE = 160  # paper §1
+PARK_BYTES_RECIRC = 352  # paper §6.2.5
+
+
+@dataclasses.dataclass(frozen=True)
+class ParkConfig:
+    capacity: int = 4096          # M, lookup table entries
+    max_exp: int = 1              # Expiry threshold (paper EXP)
+    max_clk: int = 1 << 16        # clock rollover (2-byte register, §5)
+    min_park_len: int = PARK_BYTES_BASE  # eligibility threshold (§5)
+    recirculation: bool = False   # §6.2.5: second pass through the pipeline
+    pmax: int = 2048              # payload buffer capacity of PacketBatch
+    recirc_frac: float = 0.25     # recirculation-port share of pipe capacity
+
+    def __post_init__(self):
+        if self.capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {self.capacity}")
+        if self.pmax < 1:
+            raise ValueError(f"pmax must be >= 1, got {self.pmax}")
+        if self.max_exp < 1:
+            raise ValueError(f"max_exp must be >= 1, got {self.max_exp}")
+        if self.max_clk < 2:
+            raise ValueError(f"max_clk must be >= 2, got {self.max_clk}")
+        if self.min_park_len < 1:
+            raise ValueError(
+                f"min_park_len must be >= 1, got {self.min_park_len}")
+        if not 0.0 <= self.recirc_frac <= 1.0:
+            raise ValueError(
+                f"recirc_frac must be in [0, 1], got {self.recirc_frac}")
+
+    @property
+    def park_bytes(self) -> int:
+        """Full lookup-table row width (accumulated across passes)."""
+        return PARK_BYTES_RECIRC if self.recirculation else PARK_BYTES_BASE
+
+    @property
+    def pass_bytes(self) -> int:
+        """Bytes one pipeline traversal can park."""
+        return min(PARK_BYTES_BASE, self.park_bytes)
+
+    @property
+    def banks(self) -> int:
+        return self.park_bytes // BLOCK_BYTES
+
+
+@dataclasses.dataclass
+class ParkState:
+    """Registers + tables of one PayloadPark pipe (or of P pipes, with a
+    leading pipe axis on every field)."""
+
+    tbl_idx: torch.Tensor   # (...,) int32 — TI register
+    clk: torch.Tensor       # (...,) int32 — CLK register
+    meta_exp: torch.Tensor  # (..., M) int32 — Expiry threshold per slot
+    meta_clk: torch.Tensor  # (..., M) int32 — generation per slot (0 = free)
+    meta_len: torch.Tensor  # (..., M) int32 — parked byte count per slot
+    ptable: torch.Tensor    # (..., M, park_bytes) uint8 — payload banks
+    counters: torch.Tensor  # (..., C.NUM) int32
+
+
+def init_state(cfg: ParkConfig, device=DEFAULT_DEVICE,
+               pipes: int | None = None) -> ParkState:
+    """Fresh state; ``pipes`` adds a leading pipe axis."""
+    dev = resolve_device(device)
+    lead = () if pipes is None else (pipes,)
+    m = cfg.capacity
+
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(lead + shape, dtype=dtype, device=dev)
+
+    return ParkState(
+        tbl_idx=z(), clk=z(), meta_exp=z(m), meta_clk=z(m), meta_len=z(m),
+        ptable=z(m, cfg.park_bytes, dtype=torch.uint8),
+        counters=C.zeros(dev, lead))
+
+
+def occupancy(state: ParkState) -> torch.Tensor:
+    """Number of live (parked) slots, (...,) int32."""
+    return (state.meta_exp > 0).sum(dim=-1).to(torch.int32)
+
+
+def _pack_meta(state: ParkState) -> torch.Tensor:
+    return torch.stack([state.meta_exp, state.meta_clk, state.meta_len],
+                       dim=-1)
+
+
+def _meta_row(meta: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """meta (..., M, 3) at slot (...,) int64 -> (..., 3)."""
+    i = slot[..., None, None].expand(slot.shape + (1, 3))
+    return torch.gather(meta, -2, i).squeeze(-2)
+
+
+def _set_meta_row(meta: torch.Tensor, slot: torch.Tensor,
+                  row: torch.Tensor) -> None:
+    i = slot[..., None, None].expand(slot.shape + (1, 3))
+    meta.scatter_(-2, i, row[..., None, :])
+
+
+def _gather_last(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """a (..., M) at idx (..., K) -> (..., K)."""
+    return torch.gather(a, -1, idx.to(torch.int64))
+
+
+def _payload_shift(payload, payload_len, shift, pmax):
+    """Drop the first ``shift`` bytes of each payload; zero past the new
+    length.  Returns (remainder, new_len)."""
+    col = torch.arange(pmax, device=payload.device)
+    idx = torch.clamp(col + shift[..., None], 0, pmax - 1)
+    remainder = torch.gather(payload, -1, idx.to(torch.int64))
+    new_len = payload_len - shift
+    remainder = torch.where(col < new_len[..., None], remainder, 0)
+    return remainder.to(torch.uint8), new_len.to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# Split (paper Algorithm 1)
+# --------------------------------------------------------------------------
+
+def _split_control(cfg: ParkConfig, state: ParkState, pkts: PacketBatch):
+    """Sequential tagger + metadata-table pass.  Returns the new registers
+    and metadata and the per-packet decisions."""
+    m = cfg.capacity
+    alive, plen = pkts.alive, pkts.payload_len
+    eligible = alive & (plen >= cfg.min_park_len)
+
+    # -- stage 1: packet tagger (Alg. 1 lines 4-7).  Each eligible packet
+    # advances TI and CLK by one, so the sequence is a running count; the
+    # generation clock wraps to 1, skipping 0 (0 marks a free slot).
+    k = torch.cumsum(eligible.to(torch.int64), dim=-1)
+    ti0 = state.tbl_idx.to(torch.int64)[..., None]
+    clk0 = state.clk.to(torch.int64)[..., None]
+    ti_n = torch.remainder(ti0 + k, m)
+    clk_n = torch.where(
+        k > 0, torch.remainder(clk0 - 1 + k, cfg.max_clk - 1) + 1, clk0)
+    park_len = torch.clamp(plen, max=cfg.pass_bytes)
+
+    # -- stage 2: metadata probe (Alg. 1 lines 10-25), packet by packet ----
+    meta = _pack_meta(state)
+    claims, evicts, avails = [], [], []
+    for i in range(pkts.batch_size):
+        slot, e = ti_n[..., i], eligible[..., i]
+        row = _meta_row(meta, slot)
+        exp_pre, clk_cur, len_cur = row.unbind(-1)
+        available = exp_pre <= 1         # expiry reaches 0 (lines 11-14)
+        evicted = e & (exp_pre == 1)
+        claim = e & available
+        new_exp = torch.where(
+            e, torch.where(available, cfg.max_exp, exp_pre - 1), exp_pre)
+        new_clk = torch.where(claim, clk_n[..., i],
+                              torch.where(evicted, 0, clk_cur))
+        new_len = torch.where(claim, park_len[..., i], len_cur)
+        _set_meta_row(meta, slot, torch.stack(
+            [new_exp, new_clk, new_len], dim=-1).to(torch.int32))
+        claims.append(claim)
+        evicts.append(evicted)
+        avails.append(available)
+
+    def stacked(xs):
+        if xs:
+            return torch.stack(xs, dim=-1)
+        return torch.zeros_like(alive)
+
+    enb, evicted, available = stacked(claims), stacked(evicts), stacked(avails)
+    d = dict(
+        enb=enb, ti=ti_n.to(torch.int32), clk=clk_n.to(torch.int32),
+        evicted=evicted,
+        skip_occupied=eligible & ~available,
+        skip_small=alive & (plen < cfg.min_park_len),
+        park_len=torch.where(enb, park_len, 0).to(torch.int32),
+    )
+    regs = (ti_n[..., -1].to(torch.int32) if pkts.batch_size
+            else state.tbl_idx,
+            clk_n[..., -1].to(torch.int32) if pkts.batch_size
+            else state.clk)
+    meta_exp, meta_clk, meta_len = meta.unbind(-1)
+    return regs + (meta_exp, meta_clk, meta_len), d
+
+
+def split_fn(cfg: ParkConfig, state: ParkState, pkts: PacketBatch,
+             backend=None) -> tuple[ParkState, PacketBatch]:
+    """Split: park payload prefixes, emit header-only packets.
+
+    Returns (new_state, packets as sent to the NF server).  Every alive
+    packet leaves with a PayloadPark header (ENB=1 if parked, else 0).
+    ``backend`` selects the payload_store / crc16_tag implementations.
+    """
+    backend = as_config(backend)
+    (ti, clk, meta_exp, meta_clk, meta_len), d = _split_control(
+        cfg, state, pkts)
+
+    # -- stage 3..N: stripe payload blocks into the payload table.  The
+    # full row is written (zeros above park_len), so a recirculation pass
+    # appends into zeros.
+    park = pkts.payload[..., : cfg.park_bytes]
+    if park.shape[-1] < cfg.park_bytes:
+        park = torch.nn.functional.pad(
+            park, (0, cfg.park_bytes - park.shape[-1]))
+    lane = torch.arange(cfg.park_bytes, device=park.device)
+    park = torch.where(lane < d["park_len"][..., None], park, 0)
+    ptable = dispatch("payload_store", backend)(
+        state.ptable, park.to(torch.uint8), d["ti"], d["enb"])
+
+    counters = state.counters
+    counters = C.bump(counters, "splits", d["enb"].sum(-1))
+    counters = C.bump(counters, "evictions", d["evicted"].sum(-1))
+    counters = C.bump(counters, "skip_occupied", d["skip_occupied"].sum(-1))
+    counters = C.bump(counters, "skip_small_payload", d["skip_small"].sum(-1))
+
+    new_state = ParkState(ti, clk, meta_exp, meta_clk, meta_len, ptable,
+                          counters)
+
+    # -- packet transformation: drop the parked prefix, add the PP header --
+    remainder, new_len = _payload_shift(pkts.payload, pkts.payload_len,
+                                        d["park_len"], cfg.pmax)
+    alive = pkts.alive
+    enb = d["enb"]
+    crc = crc16_tag(d["ti"], d["clk"], backend=backend)
+    zero = torch.zeros_like(pkts.pp_op)
+    out = pkts.replace(
+        payload=torch.where(alive[..., None], remainder, pkts.payload),
+        payload_len=torch.where(alive, new_len, pkts.payload_len),
+        pp_valid=alive.clone(),
+        pp_enb=torch.where(alive, enb.to(torch.int32), zero),
+        pp_op=zero,
+        pp_ti=torch.where(enb, d["ti"], zero),
+        pp_clk=torch.where(enb, d["clk"], zero),
+        pp_crc=torch.where(enb, crc, zero),
+    )
+    return new_state, out
+
+
+# --------------------------------------------------------------------------
+# Recirculation pass (paper §6.2.5)
+# --------------------------------------------------------------------------
+
+def _select_rows(mask: torch.Tensor, a: PacketBatch,
+                 b: PacketBatch) -> PacketBatch:
+    """Per-packet select between two identically shaped PacketBatches."""
+
+    def sel(name):
+        x, y = getattr(a, name), getattr(b, name)
+        return torch.where(
+            mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim())), x, y)
+
+    return PacketBatch(**{n: sel(n) for n in FIELDS})
+
+
+def _set_last(a: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+              ok: torch.Tensor) -> torch.Tensor:
+    """``a[idx[k]] = vals[k]`` where ``ok[k]`` (idx in range), the last
+    writer winning on duplicates: (..., M) -> new (..., M)."""
+    order = torch.arange(idx.shape[-1], device=idx.device).expand(idx.shape)
+    winner = torch.full(a.shape, -1, dtype=torch.int64, device=a.device)
+    winner.scatter_reduce_(-1, idx.to(torch.int64),
+                           torch.where(ok, order, -1), reduce="amax")
+    new = torch.gather(vals, -1, winner.clamp(min=0))
+    return torch.where(winner >= 0, new, a).to(a.dtype)
+
+
+def recirc_fn(cfg: ParkConfig, state: ParkState, pkts: PacketBatch,
+              backend=None) -> tuple[ParkState, PacketBatch]:
+    """One recirculation pass for packets re-injected through the
+    recirculation port (paper §6.2.5):
+
+      * **continuation** (ENB=1 with payload remaining): append up to
+        ``park_bytes - meta_len[TI]`` more bytes into the packet's row,
+        unless the slot was evicted in between;
+      * **retry** (ENB=0 after an occupied-slot skip): a fresh Split.
+
+    The appended row is written whole through ``payload_store``.
+    """
+    backend = as_config(backend)
+    counters = C.bump(state.counters, "recirculations",
+                      (pkts.alive & pkts.pp_valid).sum(-1))
+
+    # -- continuation: append into the owned row ---------------------------
+    ext = pkts.alive & pkts.pp_valid & (pkts.pp_enb == 1)
+    ti = torch.clamp(pkts.pp_ti, 0, cfg.capacity - 1).to(torch.int64)
+    own = ext & (_gather_last(state.meta_clk, ti) == pkts.pp_clk)
+    cur = torch.where(own, _gather_last(state.meta_len, ti), 0)
+    extra = torch.where(
+        own, torch.minimum(pkts.payload_len,
+                           torch.clamp(cfg.park_bytes - cur, min=0)), 0)
+    do_ext = own & (extra > 0)
+
+    col = torch.arange(cfg.park_bytes, device=ti.device)
+    src = col - cur[..., None]
+    ins = torch.gather(pkts.payload, -1,
+                       torch.clamp(src, 0, cfg.pmax - 1).to(torch.int64))
+    region = (src >= 0) & (src < extra[..., None])
+    old_rows = torch.gather(
+        state.ptable, -2,
+        ti[..., None].expand(ti.shape + (cfg.park_bytes,)))
+    new_row = torch.where(region, ins, old_rows).to(torch.uint8)
+    meta_len = _set_last(state.meta_len, ti, cur + extra, do_ext)
+    ptable = dispatch("payload_store", backend)(state.ptable, new_row, ti,
+                                                do_ext)
+
+    remainder, new_len = _payload_shift(pkts.payload, pkts.payload_len,
+                                        extra, cfg.pmax)
+    ext_out = pkts.replace(
+        payload=torch.where(do_ext[..., None], remainder, pkts.payload),
+        payload_len=torch.where(do_ext, new_len, pkts.payload_len),
+    )
+    mid = ParkState(state.tbl_idx, state.clk, state.meta_exp, state.meta_clk,
+                    meta_len, ptable, counters)
+
+    # -- retry: a second Split attempt for ENB=0 packets -------------------
+    retry = pkts.alive & pkts.pp_valid & (pkts.pp_enb == 0)
+    new_state, retry_out = split_fn(cfg, mid, ext_out.replace(alive=retry),
+                                    backend=backend)
+    return new_state, _select_rows(retry, retry_out, ext_out)
+
+
+# --------------------------------------------------------------------------
+# Merge + Explicit Drop (paper Algorithm 2, §6.2.4)
+# --------------------------------------------------------------------------
+
+def _merge_control(cfg: ParkConfig, state: ParkState, pkts: PacketBatch,
+                   backend=None):
+    """Sequential metadata validation/free pass (Alg. 2 stages 1-2).  The
+    tag CRC check is per-packet math, so it runs batched before the loop."""
+    m = cfg.capacity
+    crc_ok = tag_valid(pkts.pp_ti, pkts.pp_clk, pkts.pp_crc, backend=backend)
+    is_pp = pkts.alive & pkts.pp_valid & (pkts.pp_enb == 1)
+    checked = is_pp & crc_ok
+    slot = norm_index(pkts.pp_ti.to(torch.int64), m)
+    in_range = (slot >= 0) & (slot < m)
+    slot = torch.clamp(slot, 0, m - 1)
+
+    meta = _pack_meta(state)
+    matches, gens, lens = [], [], []
+    for i in range(pkts.batch_size):
+        s = slot[..., i]
+        row = _meta_row(meta, s)
+        gen_ok = row[..., 1] == pkts.pp_clk[..., i]
+        matched = checked[..., i] & gen_ok               # Alg. 2 line 11
+        # free the slot (Alg. 2 line 13); an out-of-range tag frees nothing
+        _set_meta_row(meta, s, torch.where(
+            (matched & in_range[..., i])[..., None], 0, row))
+        matches.append(matched)
+        gens.append(gen_ok)
+        lens.append(torch.where(matched, row[..., 2], 0))
+
+    def stacked(xs, like):
+        return torch.stack(xs, dim=-1) if xs else torch.zeros_like(like)
+
+    matched = stacked(matches, pkts.alive)
+    gen_ok = stacked(gens, pkts.alive)
+    d = dict(
+        matched=matched,
+        premature=checked & ~gen_ok,
+        crc_fail=is_pp & ~crc_ok,
+        disabled=pkts.alive & pkts.pp_valid & (pkts.pp_enb == 0),
+        is_drop_op=matched & (pkts.pp_op == OP_DROP),
+        park_len=stacked(lens, pkts.payload_len).to(torch.int32),
+    )
+    meta_exp, meta_clk, meta_len = meta.unbind(-1)
+    return (meta_exp, meta_clk, meta_len), d
+
+
+def merge_fn(cfg: ParkConfig, state: ParkState, pkts: PacketBatch,
+             backend=None) -> tuple[ParkState, PacketBatch]:
+    """Merge (and Explicit Drop) for packets returning from the NF server.
+
+      * ENB=0: PayloadPark header removed, packet forwarded.
+      * ENB=1, OP=merge, tag valid: payload re-attached, slot freed.
+      * ENB=1, OP=drop, tag valid: slot freed, packet consumed (§6.2.4).
+      * CRC or generation mismatch: packet dropped, counted.
+    """
+    backend = as_config(backend)
+    (meta_exp, meta_clk, meta_len), d = _merge_control(cfg, state, pkts,
+                                                       backend=backend)
+
+    # -- stage 3..N: gather payload blocks, then clear the rows ------------
+    fetch = d["matched"] & ~d["is_drop_op"]
+    parked, ptable = dispatch("payload_fetch", backend)(
+        state.ptable, pkts.pp_ti, d["matched"])
+
+    counters = state.counters
+    counters = C.bump(counters, "merges", fetch.sum(-1))
+    counters = C.bump(counters, "explicit_drops", d["is_drop_op"].sum(-1))
+    counters = C.bump(counters, "disabled_returns", d["disabled"].sum(-1))
+    counters = C.bump(counters, "premature_evictions", d["premature"].sum(-1))
+    counters = C.bump(counters, "crc_failures", d["crc_fail"].sum(-1))
+
+    new_state = ParkState(state.tbl_idx, state.clk, meta_exp, meta_clk,
+                          meta_len, ptable, counters)
+
+    # -- packet transformation: payload := parked ++ carried remainder -----
+    shift = torch.where(fetch, d["park_len"], 0)
+    col = torch.arange(cfg.pmax, device=shift.device)
+    rem_idx = torch.clamp(col - shift[..., None], 0, cfg.pmax - 1)
+    carried = torch.gather(pkts.payload, -1, rem_idx.to(torch.int64))
+    if cfg.pmax >= cfg.park_bytes:
+        parked_full = torch.nn.functional.pad(
+            parked, (0, cfg.pmax - cfg.park_bytes))
+    else:
+        parked_full = parked[..., : cfg.pmax]
+    new_payload = torch.where(col < shift[..., None], parked_full, carried)
+    new_len = pkts.payload_len + shift
+    new_payload = torch.where(col < new_len[..., None], new_payload, 0)
+
+    forwarded = d["disabled"] | fetch
+    dropped = d["premature"] | d["crc_fail"] | d["is_drop_op"]
+    gone = forwarded | dropped
+    zero = torch.zeros_like(pkts.pp_op)
+    out = pkts.replace(
+        payload=torch.where(forwarded[..., None], new_payload,
+                            pkts.payload).to(torch.uint8),
+        payload_len=torch.where(forwarded, new_len,
+                                pkts.payload_len).to(torch.int32),
+        alive=pkts.alive & ~dropped,
+        pp_valid=pkts.pp_valid & ~gone,
+        pp_enb=torch.where(gone, zero, pkts.pp_enb),
+        pp_op=torch.where(gone, zero, pkts.pp_op),
+        pp_ti=torch.where(gone, zero, pkts.pp_ti),
+        pp_clk=torch.where(gone, zero, pkts.pp_clk),
+        pp_crc=torch.where(gone, zero, pkts.pp_crc),
+    )
+    return new_state, out
+
+
+def stats(state: ParkState) -> dict[str, Any]:
+    d = C.as_dict(state.counters)
+    d["occupancy"] = int(occupancy(state))
+    return d

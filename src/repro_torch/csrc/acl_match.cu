@@ -1,0 +1,49 @@
+// Firewall ACL probe: blocked[i] = any(src_ip[i] == rules[k]).
+//
+// Replaces the TPU kernel repro/kernels/acl_match/kernel.py::acl_match_kernel
+// (body _acl_kernel). The TPU version pads the rule list with -1 to its
+// tile; here each block stages the rules in shared memory, 256 at a time,
+// and every thread (one per packet) compares its address against them. A
+// shared-memory read of one word by the whole warp is a broadcast, so the
+// R <= 20 rules of the paper's chains cost R register compares per packet.
+//
+// Bound: bytes (4 read and 1 written per packet, plus the rules once per
+// block); the compares are far below the card's integer rate.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kRuleTile = 256;
+
+__global__ void acl_match_kernel(const int32_t* __restrict__ ip,
+                                 const int32_t* __restrict__ rules,
+                                 uint8_t* __restrict__ out, int64_t n,
+                                 int r) {
+  __shared__ int32_t tile[kRuleTile];
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int32_t v = i < n ? ip[i] : 0;
+  bool hit = false;
+  // every thread takes part in the staging, including those past n
+  for (int base = 0; base < r; base += kRuleTile) {
+    const int cnt = min(kRuleTile, r - base);
+    for (int k = threadIdx.x; k < cnt; k += blockDim.x) tile[k] = rules[base + k];
+    __syncthreads();
+    for (int k = 0; k < cnt; ++k) hit |= (tile[k] == v);
+    __syncthreads();
+  }
+  if (i < n) out[i] = hit ? 1 : 0;
+}
+
+}  // namespace
+
+extern "C" int pp_acl_match(const void* ip, const void* rules, void* out,
+                            int64_t n, int r, void* stream) {
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  acl_match_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(ip), static_cast<const int32_t*>(rules),
+      static_cast<uint8_t*>(out), n, r);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,68 @@
+"""payload_store on the card: CUDA kernel ``csrc/payload_store.cu``.
+
+Replaces ``repro/kernels/payload_store/kernel.py::payload_store_kernel``.
+The TPU wrapper regroups the bytes into int32 words padded to 128 lanes; a
+Hopper warp copies the uint8 rows directly, 16 bytes a thread, one warp
+per packet and one grid row per pipe.  Duplicate enabled rows resolve as
+the sequential TPU kernel does (last writer wins): a first pass takes the
+highest packet index per row into an M-int scratch with ``atomicMax``, and
+only that winner copies.  The wrapper allocates the scratch, -1 filled.
+Bound by bytes: one read and one write of each enabled row.
+
+``payload_store_cuda`` launches the kernel and raises on CPU tensors;
+``payload_store`` is the ``auto`` entry, which takes the plain version
+(``payload_store_plain``) only because its tensors lie on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.backend.ref import payload_store as payload_store_plain
+from repro_torch.kernels.build import (check, launch_counter, library,
+                                       require_aligned, require_cuda,
+                                       stream_handle)
+
+COUNT = launch_counter("payload_store")
+
+__all__ = ["COUNT", "payload_store", "payload_store_cuda",
+           "payload_store_plain"]
+
+
+def payload_store_cuda(table, payload, idx, enb) -> torch.Tensor:
+    """In place: table (..., M, W) uint8, payload (..., B, W) uint8,
+    idx (..., B) integer, enb (..., B) bool, W a multiple of 16.
+    Returns ``table``."""
+    dev = require_cuda("payload_store", table, payload, idx, enb)
+    *lead, m, w = table.shape
+    b = idx.shape[-1]
+    if table.dtype != torch.uint8 or payload.dtype != torch.uint8:
+        raise TypeError("payload_store: table and payload must be uint8")
+    if tuple(payload.shape) != (*lead, b, w) or tuple(enb.shape) != (*lead, b):
+        raise ValueError(
+            f"payload_store: shapes table {tuple(table.shape)} payload "
+            f"{tuple(payload.shape)} idx {tuple(idx.shape)} enb "
+            f"{tuple(enb.shape)} do not agree")
+    if w % 16:
+        raise ValueError(f"payload_store: row width {w} is not a multiple "
+                         "of 16")
+    payload = payload.contiguous()
+    require_aligned("payload_store", table, payload)
+    idx = idx.to(torch.int32).contiguous()
+    enb = enb.to(torch.bool).contiguous()
+    pipes = table[..., 0, 0].numel()
+    if pipes == 0 or b == 0:
+        return table
+    winner = torch.full((pipes, m), -1, dtype=torch.int32, device=dev)
+    rc = library().pp_payload_store(table.data_ptr(), payload.data_ptr(),
+                                    idx.data_ptr(), enb.data_ptr(),
+                                    winner.data_ptr(), pipes, b, m, w,
+                                    stream_handle(dev))
+    check("payload_store", rc)
+    COUNT.launches += 1
+    return table
+
+
+def payload_store(table, payload, idx, enb) -> torch.Tensor:
+    if table.device.type == "cpu":
+        return payload_store_plain(table, payload, idx, enb)
+    return payload_store_cuda(table, payload, idx, enb)

@@ -1,0 +1,78 @@
+"""NF chain composition and the Explicit-Drop integration point (port of
+``repro.nf.chain``; paper §1 "FW-NAT", §6.2.4).
+
+A chain is an ordered tuple of NFs; each NF is a function
+``(state, pkts) -> (state, pkts, drop_mask, cycles)`` touching headers
+only.  ``to_explicit_drops`` turns chain-dropped, parked packets into
+truncated OP=drop notifications so Merge frees their slots at once.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.packet import OP_DROP, PacketBatch, dead_batch
+from repro_torch.device import DEFAULT_DEVICE
+
+
+@dataclasses.dataclass(frozen=True)
+class Chain:
+    nfs: tuple  # NF dataclasses (Firewall, Nat)
+
+    def init_state(self, device=DEFAULT_DEVICE,
+                   pipes: int | None = None) -> tuple:
+        return tuple(nf.init_state(device, pipes) for nf in self.nfs)
+
+    def run(self, states: tuple, pkts: PacketBatch, backend=None, ctx=None):
+        """Returns (new_states, pkts_out, dropped_by_chain, total_cycles).
+        ``backend`` and the fault-injection ``ctx`` dict are threaded to
+        every NF uniformly."""
+        dropped = torch.zeros_like(pkts.alive)
+        total_cycles = 0.0
+        new_states = []
+        for nf, st in zip(self.nfs, states):
+            st, pkts, drop, cycles = nf(st, pkts, backend=backend, ctx=ctx)
+            dropped = dropped | drop
+            total_cycles += cycles
+            new_states.append(st)
+        return tuple(new_states), pkts, dropped, total_cycles
+
+    def state_counters(self, states: tuple) -> dict:
+        """The NF-private counters carried in chain state (e.g. NAT's
+        ``nat_stale_hits``), as a flat name -> tensor dict."""
+        out: dict = {}
+        for nf, st in zip(self.nfs, states):
+            fn = getattr(nf, "state_counters", None)
+            if fn is None:
+                continue
+            for name, val in fn(st).items():
+                if name in out:
+                    raise ValueError(f"duplicate NF counter {name!r}")
+                out[name] = val
+        return out
+
+    def cycle_costs(self, backend=None,
+                    device=DEFAULT_DEVICE) -> tuple[float, ...]:
+        """Per-NF CPU cycle costs in chain order, probed by running each NF
+        on one dead packet through the same backend dispatch."""
+        probe = dead_batch(1, 16, device=device)
+        costs = []
+        for nf in self.nfs:
+            _, _, _, cycles = nf(nf.init_state(device), probe,
+                                 backend=backend)
+            costs.append(float(cycles))
+        return tuple(costs)
+
+
+def to_explicit_drops(pkts: PacketBatch, dropped) -> PacketBatch:
+    """Convert chain-dropped, parked packets into OP=drop notifications
+    (paper §6.2.4: change the opcode, truncate the payload, send back)."""
+    notify = dropped & pkts.pp_valid & (pkts.pp_enb == 1)
+    return pkts.replace(
+        alive=pkts.alive | notify,
+        payload_len=torch.where(notify, 0, pkts.payload_len).to(torch.int32),
+        payload=torch.where(notify[..., None], 0,
+                            pkts.payload).to(torch.uint8),
+        pp_op=torch.where(notify, OP_DROP, pkts.pp_op).to(torch.int32),
+    )

@@ -1,0 +1,210 @@
+"""Each primitive's plain PyTorch version against the reference's jnp
+version and its Pallas kernel in interpret mode, on the same numpy inputs,
+compared exactly; plus the backend registry's device rules on the CPU."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.backend import dispatch as jdispatch  # noqa: E402
+from repro_torch.backend import BackendConfig  # noqa: E402
+from repro_torch.backend import dispatch as tdispatch  # noqa: E402
+from repro_torch.backend import ref as R  # noqa: E402
+from repro_torch.kernels import launch_counts  # noqa: E402
+
+JAX_BACKENDS = ("ref", "pallas_interpret")
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _run(name, jax_backend, *args):
+    out = jdispatch(name, jax_backend)(*(jnp.asarray(a) for a in args))
+    if isinstance(out, tuple):
+        return tuple(np.asarray(o) for o in out)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("jax_backend", JAX_BACKENDS)
+@pytest.mark.parametrize("n", [1, 7, 1000, 1024])
+def test_crc16_parity(n, jax_backend):
+    rng = np.random.default_rng(n)
+    ti = rng.integers(0, 1 << 16, n).astype(np.int32)
+    clk = rng.integers(1, 1 << 16, n).astype(np.int32)
+    got = R.crc16_tag(_t(ti), _t(clk)).numpy()
+    assert np.array_equal(got, _run("crc16_tag", jax_backend, ti, clk))
+
+
+def test_crc16_known_vector_bitexact():
+    data = torch.tensor([ord(c) for c in "123456789"], dtype=torch.int32)
+    assert int(R.crc16_bytes(data)) == 0x29B1
+
+
+@pytest.mark.parametrize("jax_backend", JAX_BACKENDS)
+@pytest.mark.parametrize("b,r", [(5, 1), (500, 20), (1024, 4), (264, 20)])
+def test_acl_match_parity(b, r, jax_backend):
+    rng = np.random.default_rng(b + r)
+    ips = rng.integers(0, 50, b).astype(np.int32)
+    rules = rng.integers(0, 50, r).astype(np.int32)
+    got = R.acl_match(_t(ips), _t(rules)).numpy()
+    assert np.array_equal(got, _run("acl_match", jax_backend, ips, rules))
+
+
+@pytest.mark.parametrize("jax_backend", JAX_BACKENDS)
+@pytest.mark.parametrize("b", [3, 300])
+def test_maglev_select_parity(b, jax_backend):
+    rng = np.random.default_rng(b)
+    f = [rng.integers(-(1 << 31), (1 << 31) - 1, b).astype(np.int32)
+         for _ in range(5)]
+    table = rng.integers(0, 8, 251).astype(np.int32)
+    bips = rng.integers(0, 1 << 30, 8).astype(np.int32)
+    got = R.maglev_select(*(_t(a) for a in f), _t(table), _t(bips)).numpy()
+    assert np.array_equal(
+        got, _run("maglev_select", jax_backend, *f, table, bips))
+
+
+def _store_inputs(m, nbytes, b, seed, dups):
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 256, (m, nbytes)).astype(np.uint8)
+    payload = rng.integers(0, 256, (b, nbytes)).astype(np.uint8)
+    idx = (rng.permutation(m)[:b] if b <= m else np.arange(b) % m)
+    idx = idx.astype(np.int32)
+    enb = rng.random(b) < 0.7
+    if dups and b >= 4:  # several enabled writers to one row: last wins
+        idx[[1, 2, b - 1]] = idx[0]
+        enb[[0, 1, b - 1]] = True
+    return table, payload, idx, enb
+
+
+@pytest.mark.parametrize("jax_backend", JAX_BACKENDS)
+@pytest.mark.parametrize("dups", [False, True])
+@pytest.mark.parametrize("m,nbytes,b", [(16, 160, 8), (64, 352, 24),
+                                        (128, 160, 128), (32, 32, 5)])
+def test_payload_store_parity(m, nbytes, b, dups, jax_backend):
+    table, payload, idx, enb = _store_inputs(m, nbytes, b, m + b, dups)
+    got = R.payload_store(_t(table), _t(payload), _t(idx), _t(enb)).numpy()
+    want = _run("payload_store", jax_backend, table, payload, idx, enb)
+    assert np.array_equal(got, want)
+
+
+def test_payload_store_out_of_range_rows_match_reference():
+    table, payload, idx, enb = _store_inputs(16, 160, 8, 3, False)
+    idx[:4] = [-1, -16, 16, -17]  # wraps, wraps, dropped, dropped
+    enb[:4] = True
+    got = R.payload_store(_t(table), _t(payload), _t(idx), _t(enb)).numpy()
+    assert np.array_equal(got, _run("payload_store", "ref", table, payload,
+                                    idx, enb))
+
+
+def _fetch_inputs(m, nbytes, b, seed):
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 256, (m, nbytes)).astype(np.uint8)
+    idx = (rng.permutation(m)[:b] if b <= m else np.arange(b) % m)
+    mask = rng.random(b) < 0.6
+    # masked-off rows carry pp_ti = 0 duplicates, as Merge hands them over
+    idx = np.where(mask, idx, 0).astype(np.int32)
+    return table, idx, mask
+
+
+@pytest.mark.parametrize("jax_backend", JAX_BACKENDS)
+@pytest.mark.parametrize("m,nbytes,b", [(16, 160, 8), (64, 352, 24),
+                                        (128, 160, 128)])
+def test_payload_fetch_parity(m, nbytes, b, jax_backend):
+    table, idx, mask = _fetch_inputs(m, nbytes, b, m * b)
+    rows, tab = R.payload_fetch(_t(table), _t(idx), _t(mask))
+    want_rows, want_tab = _run("payload_fetch", jax_backend, table, idx,
+                               mask)
+    assert np.array_equal(rows.numpy(), want_rows)
+    assert np.array_equal(tab.numpy(), want_tab)
+
+
+def test_payload_fetch_all_masked_touches_nothing_bitexact():
+    table, idx, _ = _fetch_inputs(16, 160, 8, 1)
+    mask = np.zeros(8, bool)
+    rows, tab = R.payload_fetch(_t(table), _t(np.zeros(8, np.int32)),
+                                _t(mask))
+    assert not rows.any() and np.array_equal(tab.numpy(), table)
+
+
+def test_payload_fetch_out_of_range_rows_match_reference():
+    table, idx, mask = _fetch_inputs(16, 160, 8, 5)
+    idx[:3] = [-2, 40, -40]  # wraps; clamps to 15 (no clear); clamps to 0
+    mask[:3] = True
+    rows, tab = R.payload_fetch(_t(table), _t(idx), _t(mask))
+    want_rows, want_tab = _run("payload_fetch", "ref", table, idx, mask)
+    assert np.array_equal(rows.numpy(), want_rows)
+    assert np.array_equal(tab.numpy(), want_tab)
+
+
+def test_primitives_take_a_leading_pipe_axis():
+    tabs, pays, idxs, enbs = zip(*(_store_inputs(32, 160, 8, s, True)
+                                   for s in range(3)))
+    got = R.payload_store(_t(np.stack(tabs)), _t(np.stack(pays)),
+                          _t(np.stack(idxs)), _t(np.stack(enbs))).numpy()
+    for p in range(3):
+        want = _run("payload_store", "ref", tabs[p], pays[p], idxs[p],
+                    enbs[p])
+        assert np.array_equal(got[p], want)
+    tabs, idxs, masks = zip(*(_fetch_inputs(32, 352, 8, s) for s in range(3)))
+    rows, tab = R.payload_fetch(_t(np.stack(tabs)), _t(np.stack(idxs)),
+                                _t(np.stack(masks)))
+    for p in range(3):
+        want_rows, want_tab = _run("payload_fetch", "ref", tabs[p], idxs[p],
+                                   masks[p])
+        assert np.array_equal(rows[p].numpy(), want_rows)
+        assert np.array_equal(tab[p].numpy(), want_tab)
+
+
+# --------------------------------------------------------------------------
+# registry and device rules
+# --------------------------------------------------------------------------
+
+def _cpu_args(name):
+    z = torch.zeros(8, dtype=torch.int32)
+    return {
+        "crc16_tag": (z, z),
+        "acl_match": (z, z[:2]),
+        "maglev_select": (z, z, z, z, z, torch.zeros(251, dtype=torch.int32),
+                          torch.zeros(8, dtype=torch.int32)),
+        "payload_store": (torch.zeros(4, 16, dtype=torch.uint8),
+                          torch.zeros(8, 16, dtype=torch.uint8), z,
+                          torch.ones(8, dtype=torch.bool)),
+        "payload_fetch": (torch.zeros(4, 16, dtype=torch.uint8), z,
+                          torch.ones(8, dtype=torch.bool)),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["crc16_tag", "acl_match", "maglev_select",
+                                  "payload_store", "payload_fetch"])
+def test_cuda_backend_raises_on_cpu_tensors(name):
+    before = launch_counts()
+    with pytest.raises((RuntimeError, NotImplementedError)):
+        tdispatch(name, "cuda")(*_cpu_args(name))
+    assert launch_counts() == before
+    assert all(v == 0 for v in launch_counts().values())
+
+
+@pytest.mark.parametrize("name", ["crc16_tag", "acl_match", "maglev_select",
+                                  "payload_store", "payload_fetch"])
+def test_auto_backend_runs_plain_version_on_cpu(name):
+    args = _cpu_args(name)
+    got = tdispatch(name, "auto")(*(a.clone() for a in args))
+    want = tdispatch(name, "ref")(*(a.clone() for a in args))
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w)
+    assert all(v == 0 for v in launch_counts().values())
+
+
+def test_backend_config_validates_and_overrides():
+    with pytest.raises(ValueError):
+        BackendConfig("pallas")
+    with pytest.raises(ValueError):
+        BackendConfig("auto", {"nope": "ref"})
+    cfg = BackendConfig("auto", {"payload_store": "ref"})
+    assert cfg.mode("payload_store") == "ref"
+    assert cfg.mode("crc16_tag") == "auto"
+    assert cfg == BackendConfig("auto", (("payload_store", "ref"),))
