@@ -7,26 +7,39 @@ Phases (any failure raises, so the script exits non-zero):
 1. Card and build: the card's name and power limit (``nvidia-smi``), then
    ``nvcc`` builds the CUDA kernels from ``src/repro_torch/csrc``.
 2. Kernels against their plain PyTorch versions on the card, at the main
-   path's shapes plus edge cases (B = 256 and 264, M = 4096, W = 160 and
-   352, R = 1 and 20, duplicate and masked rows), compared exactly.  Each
-   kernel is timed (median of 30 launches, CUDA events) beside its plain
-   version, one PyTorch library call where one computes the same function,
-   and its bound: the larger of the bytes it must move over 3.35 TB/s and
-   its 32-bit operations over 67 T/s.
+   paths' shapes plus edge cases (B = 256 and 264, M = 4096, W = 160 and
+   352, R = 1 and 20, duplicate and masked rows; maglev at (P, B) = (2,
+   256), (2, 320) and (1, 264) with a shared 251-entry table, a per-pipe
+   table mixing the live and degraded tables, a 65537-entry table and dead
+   rows), compared exactly.  Each kernel is timed (median of 30 launches,
+   CUDA events) beside its plain version, one PyTorch library call where
+   one computes the same function, and its bound: the larger of the bytes
+   it must move over 3.35 TB/s and its 32-bit operations over 67 T/s.
 3. The quickstart flow at full width (enterprise, 256 packets, default
    ParkConfig, Firewall -> NAT): Split, chain and Merge on the card,
    wire-identical to the chain run on whole packets.
 4. The engine at full geometry: ``run_pipes`` with 8 pipes over 16384
    steered enterprise packets (chunk 256, window 2, capacity 4096,
    max_exp 2, pmax 2048, 20 firewall rules -> NAT), and ``run_engine`` with
-   one recirculating pipe (352-byte rows), each on the card with the
-   kernels and on the CPU with the plain versions from the same seeded
-   inputs; counters, telemetry, NF counters, occupancy and merged wire
-   bytes must be identical, the goodput gain positive, and every kernel
-   launched during each card run.  The first steps of the 8-pipe run are
-   then repeated under ``torch.profiler`` to count device kernels per step
-   and the device's busy time against the untraced wall time.
-5. A ``kernels`` JSON line, the card line, and the final ``ok`` line.
+   one recirculating pipe (352-byte rows) over 4096 of those packets, each
+   on the card with the kernels and on the CPU with the plain versions
+   from the same seeded inputs; counters, telemetry, NF counters,
+   occupancy and merged wire bytes must be identical, the goodput gain
+   positive, and every kernel of the path launched during each card run.
+5. The §7 chain: the ``chain`` scenario family at full geometry (FW ->
+   NAT -> Maglev LB; datacenter and enterprise traffic from a 1024-flow
+   pool, 16384 packets, capacity 4096, max_exp 4, parking with and without
+   recirculation) through ``run_matrix`` on the card (backend ``auto``)
+   and on the CPU from the same seed, one ``run_matrix`` call per batched
+   group of two points.  Per point the counters, telemetry, NF counters,
+   occupancy and gain must be identical; ``verify_oracle`` must hold on
+   every CPU point; the datacenter gain must be positive and higher with
+   recirculation; all five kernels must launch during the card run.
+6. Traces, after every timed run: the first steps of the 8-pipe run and
+   of each chain group, timed untraced and then repeated under
+   ``torch.profiler``, give device kernels per step and the device's busy
+   time against the untraced wall time.
+7. A ``kernels`` JSON line, the card line, and the final ``ok`` line.
 
 Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
 """
@@ -48,15 +61,21 @@ FP32_OPS_PER_S = 67e12      # non-tensor 32-bit rate, the same data sheet
 # (2 ops), and per byte a shift and xor plus 8 steps of shift, mask, shift,
 # mask and a conditional xor; acl_match a compare and an or per rule.
 CRC16_OPS = 4 * 2 + 4 * (2 + 8 * 5)
+# maglev: four multiply-xor steps, a mask and a modulo per packet
+MAGLEV_OPS = 4 * 2 + 2
 SEED = 20200611
-PROFILE_STEPS = 4  # traced steps of the 8-pipe run (each traced step costs
-                   # ~24k device kernels of profiler bookkeeping)
+RECIRC1_PACKETS = 4096  # the chain phase runs recirculation at full depth
+PROFILE_STEPS = 4  # traced steps of each traced run (each traced step
+                   # costs ~24k device kernels of profiler bookkeeping)
 REPLACES = {
     "crc16": "src/repro/kernels/crc16/kernel.py:40",
     "payload_store": "src/repro/kernels/payload_store/kernel.py:49",
     "payload_fetch": "src/repro/kernels/payload_fetch/kernel.py:49",
     "acl_match": "src/repro/kernels/acl_match/kernel.py:28",
+    "maglev": "src/repro/kernels/maglev/kernel.py:37",
 }
+# the kernels of the Split -> FW -> NAT -> Merge path (phase 4)
+DATAPLANE_KERNELS = ("crc16", "payload_store", "payload_fetch", "acl_match")
 
 
 def card_line() -> str:
@@ -137,10 +156,39 @@ def fetch_inputs(gen, pipes, b, m, w, dev):
     return [x.to(dev) for x in (table, idx, mask)]
 
 
+def maglev_inputs(gen, pipes, b, dev, dead=(7,)):
+    """Five (pipes, b) int32 header fields over the whole int32 range;
+    the ``dead`` rows are all zero, as the engine's dead rows are."""
+    fields = [torch.randint(-(1 << 31), (1 << 31) - 1, (pipes, b),
+                            generator=gen, dtype=torch.int32)
+              for _ in range(5)]
+    for f in fields:
+        f[:, list(dead)] = 0
+    return [f.to(dev) for f in fields]
+
+
+def maglev_tables(gen, pipes, dev) -> dict:
+    from repro_torch.nf.maglev import MaglevLB, build_table, degraded_table
+    lb = MaglevLB()
+    live = torch.from_numpy(build_table(lb.backends, 251))
+    down = torch.from_numpy(degraded_table(lb.backends, 251, 3))
+    big = torch.randint(0, len(lb.backends), (pipes, 65537), generator=gen,
+                        dtype=torch.int32)
+    tables = {
+        "shared 251": live,
+        "per-pipe 251": torch.stack([(down if p % 2 == 0 else live)
+                                     for p in range(pipes)]),
+        "shared 65537": big[0],
+        "per-pipe 65537": big,
+    }
+    return {k: v.to(dev) for k, v in tables.items()}
+
+
 def check_kernels(dev) -> dict:
     from repro_torch.backend import ref as R
-    from repro_torch.kernels import acl_match, crc16, payload_fetch
+    from repro_torch.kernels import acl_match, crc16, maglev, payload_fetch
     from repro_torch.kernels import payload_store
+    from repro_torch.nf.maglev import MaglevLB
 
     gen = torch.Generator().manual_seed(SEED)
     err = dict.fromkeys(REPLACES, 0)
@@ -178,18 +226,30 @@ def check_kernels(dev) -> dict:
                            g1, g2),
                 must_equal(f"payload_fetch table {pipes}x{b}x{w}{label}",
                            t1, t2))
+    bips = torch.tensor(MaglevLB().backends, dtype=torch.int32, device=dev)
+    for pipes, b in ((2, 256), (2, 320), (1, 264)):
+        fields = maglev_inputs(gen, pipes, b, dev, dead=(7, b - 1))
+        for label, table in maglev_tables(gen, pipes, dev).items():
+            err["maglev"] = max(err["maglev"], must_equal(
+                f"maglev {pipes}x{b} {label}",
+                maglev.maglev_select_cuda(*fields, table, bips),
+                R.maglev_select(*fields, table, bips)))
     torch.cuda.synchronize()
     print("kernels vs plain: exact on every case "
-          "(B 256/264, W 160/352, R 1/20, duplicates, masked, out of range)")
+          "(B 256/264, W 160/352, R 1/20, duplicates, masked, out of range; "
+          "maglev (P, B) 2x256/2x320/1x264, shared and per-pipe tables of "
+          "251 and 65537, dead rows)")
     return err
 
 
 def time_kernels(dev) -> dict:
     """Times at the 8-pipe main path shapes: 8 pipes x 256 packets,
-    M = 4096, W = 160, R = 20."""
+    M = 4096, W = 160, R = 20; maglev at the chain path's 2 pipes x 256
+    packets with the shared 251-entry table and 8 backends."""
     from repro_torch.backend import ref as R
-    from repro_torch.kernels import acl_match, crc16, payload_fetch
+    from repro_torch.kernels import acl_match, crc16, maglev, payload_fetch
     from repro_torch.kernels import payload_store
+    from repro_torch.nf.maglev import MaglevLB, build_table
 
     gen = torch.Generator().manual_seed(SEED + 1)
     pipes, b, m, w = 8, 256, 4096, 160
@@ -235,6 +295,18 @@ def time_kernels(dev) -> dict:
         plain_ms=device_ms(lambda: R.payload_fetch(t, i, mk)),
         library_ms=None,
         bound_bytes=matched * w * 2 + n * w + n * 5, bound_ops=0)
+
+    lb = MaglevLB()
+    fields = maglev_inputs(gen, 2, 256, dev, dead=())
+    table = torch.from_numpy(build_table(lb.backends, 251)).to(dev)
+    bips = torch.tensor(lb.backends, dtype=torch.int32, device=dev)
+    n = fields[0].numel()
+    rows["maglev"] = dict(
+        ms=device_ms(lambda: maglev.maglev_select_cuda(*fields, table, bips)),
+        plain_ms=device_ms(lambda: R.maglev_select(*fields, table, bips)),
+        library_ms=None,
+        bound_bytes=n * 24 + table.numel() * 4 + bips.numel() * 4,
+        bound_ops=n * MAGLEV_OPS)
     for name, r in rows.items():
         by_bytes = r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
         by_ops = r["bound_ops"] / FP32_OPS_PER_S * 1e3
@@ -336,7 +408,7 @@ def device_busy(run, dev) -> dict:
                 busy_s=sum(v[1] for v in by_name.values()) / 1e6, top=top)
 
 
-def profile_steps(run, dev, steps: int) -> None:
+def profile_steps(label: str, run, dev, steps: int) -> None:
     """Device kernels per engine step and the device's idle share, from a
     traced run of ``steps`` steps timed untraced first."""
     sync(dev)
@@ -349,7 +421,7 @@ def profile_steps(run, dev, steps: int) -> None:
         print("profile: torch.profiler saw no device kernels; device busy "
               "share not measured")
         return
-    print(f"profile pipes8, first {steps} steps: {prof['kernels']} device "
+    print(f"profile {label}, {steps} steps: {prof['kernels']} device "
           f"kernels ({prof['kernels'] / steps:.1f} per step), device busy "
           f"{prof['busy_s']:.6f} s of the untraced {wall:.6f} s: idle share "
           f"{1 - prof['busy_s'] / wall:.6f}")
@@ -357,7 +429,9 @@ def profile_steps(run, dev, steps: int) -> None:
         print(f"  {us / 1e3:12.3f} ms {cnt:8d}x {name[:90]}")
 
 
-def engine(dev, packets: int = 16384) -> dict:
+def engine(dev, packets: int = 16384):
+    """Phase 4.  Returns the launch counts of each run and the runs to
+    trace once every timed run is over."""
     from repro_torch.core.packet import map_fields, to_time_major
     from repro_torch.core.park import ParkConfig
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -390,7 +464,8 @@ def engine(dev, packets: int = 16384) -> dict:
         ("recirc1", lambda d: run_engine(
             ParkConfig(capacity=4096, max_exp=2, pmax=2048,
                        recirculation=True), chain,
-            to_time_major(pkts, chunk), window=window, device=d), False),
+            to_time_major(map_fields(lambda n, a: a[:RECIRC1_PACKETS], pkts),
+                          chunk), window=window, device=d), False),
     )
     for label, run, per_pipe in runs:
         sync(dev)
@@ -407,7 +482,7 @@ def engine(dev, packets: int = 16384) -> dict:
         gain = goodput_gain(gpu)["goodput_gain"]
         if not gain > 0:
             raise AssertionError(f"{label}: goodput gain {gain} <= 0")
-        missing = [k for k, v in counts[label].items() if v == 0]
+        missing = [k for k in DATAPLANE_KERNELS if counts[label][k] == 0]
         if missing:
             raise AssertionError(f"{label}: kernels never launched on the "
                                  f"card: {missing}")
@@ -416,12 +491,99 @@ def engine(dev, packets: int = 16384) -> dict:
               f" CPU {cpu_wall:.3f} s, goodput_gain {gain:.6f}, counters "
               f"{gpu.counters}, launches {counts[label]}; identical to the "
               "CPU run")
-        if label == "pipes8":
-            profile_steps(lambda d: run_pipes(
-                cfg, chain, map_fields(lambda n, a: a[:, :PROFILE_STEPS],
-                                       traces), window=window, device=d),
-                dev, PROFILE_STEPS + window)
-    return counts
+    head = map_fields(lambda n, a: a[:, :PROFILE_STEPS], traces)
+    traced = [("pipes8", lambda d: run_pipes(cfg, chain, head, window=window,
+                                             device=d),
+               PROFILE_STEPS + window)]
+    return counts, traced
+
+
+# --------------------------------------------------------------------------
+# phase 5: the §7 FW -> NAT -> LB chain through the scenario runner
+# --------------------------------------------------------------------------
+
+def same_point(label: str, gpu, cpu) -> None:
+    for what in ("counters", "telemetry", "nf_counters", "per_pipe_counters",
+                 "per_pipe_telemetry", "per_pipe_nf_counters",
+                 "per_pipe_peak_occupancy", "per_pipe_occ_series", "gain",
+                 "steer_stats", "nf_cycles"):
+        same(f"{label} {what}", getattr(gpu, what), getattr(cpu, what))
+
+
+def chain_phase(dev):
+    """Phase 5.  Returns the launch counts of the card run and the runs to
+    trace once every timed run is over."""
+    from repro_torch.core.packet import map_fields
+    from repro_torch.kernels import KERNELS, launch_counts
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.scenarios import family, run_matrix, verify_oracle
+    from repro_torch.switchsim.engine import run_pipes
+
+    specs = family("chain")
+    groups = [[s for s in specs if s.recirc is on] for on in (False, True)]
+    s0 = specs[0]
+    print(f"chain: {len(specs)} points (FW {s0.fw_rules} rules -> NAT -> "
+          f"Maglev LB), {s0.packets} packets of a {s0.flows}-flow pool, "
+          f"chunk {s0.chunk}, window {s0.window}, capacity {s0.capacity}, "
+          f"max_exp {s0.max_exp}; groups {[[x.name for x in g] for g in groups]}")
+
+    def run_groups(d):
+        out, walls = {}, []
+        for members in groups:
+            sync(d)
+            t0 = time.perf_counter()
+            res = run_matrix(members, device=d)
+            sync(d)
+            walls.append(time.perf_counter() - t0)
+            if [r.group_size for r in res] != [len(members)] * len(members):
+                raise AssertionError(f"chain: {[m.name for m in members]} "
+                                     "did not batch into one run_pipes call")
+            out.update((r.spec.name, r) for r in res)
+        return out, walls
+
+    sync(dev)
+    reset_launch_counts()
+    gpu, gpu_walls = run_groups(dev)
+    counts = launch_counts()
+    cpu, cpu_walls = run_groups("cpu")
+    for name in gpu:
+        same_point(f"chain {name}", gpu[name], cpu[name])
+    for r in cpu.values():
+        verify_oracle(r, device="cpu")
+    gain = {k: r.gain["goodput_gain"] for k, r in gpu.items()}
+    if not gain["datacenter_base"] > 0:
+        raise AssertionError(f"chain: datacenter gain {gain} is not > 0")
+    if not gain["datacenter_recirc"] > gain["datacenter_base"]:
+        raise AssertionError(f"chain: recirculation does not raise the "
+                             f"datacenter gain: {gain}")
+    for name, r in gpu.items():
+        print(f"chain {name}: goodput_gain {r.gain['goodput_gain']:.6f}, "
+              f"link_byte_saving {r.gain['link_byte_saving']:.6f}, "
+              f"counters {r.counters}, nf {r.nf_counters}, peak occupancy "
+              f"{r.peak_occupancy}; identical to the CPU run, oracle holds")
+    for members, gw, cw in zip(groups, gpu_walls, cpu_walls):
+        offered = sum(gpu[m.name].telemetry.wire_pkts for m in members)
+        print(f"chain group {[m.name for m in members]}: card {gw:.3f} s "
+              f"({offered / gw:.1f} offered pkt/s), CPU {cw:.3f} s")
+    print(f"chain launches on the card: {counts}")
+    missing = [k for k in KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"chain: kernels never launched on the card: "
+                             f"{missing}")
+    # the first steps of each group's run_pipes call, to be traced
+    traced = []
+    for members in groups:
+        pts = [gpu[m.name].prepared for m in members]
+        head = map_fields(lambda n, *xs: torch.cat([x[:, :PROFILE_STEPS]
+                                                    for x in xs]),
+                          *(p.traces for p in pts))
+        s1 = members[0]
+        traced.append((f"chain {s1.name} group",
+                       lambda d, s1=s1, ch=pts[0].chain, head=head: run_pipes(
+                           s1.park_config(), ch, head, window=s1.window,
+                           device=d),
+                       PROFILE_STEPS + s1.window + int(s1.recirc)))
+    return counts, traced
 
 
 def main() -> int:
@@ -444,16 +606,25 @@ def main() -> int:
     err = check_kernels(dev)
     times = time_kernels(dev)
     quickstart(dev)
-    counts = engine(dev)
+    counts, traced = engine(dev)
+    counts["chain"], chain_traced = chain_phase(dev)
+    # phase 6, after every timed run: a torch.profiler session slows the
+    # launches that follow it in the same process
+    for label, run, steps in traced + chain_traced:
+        profile_steps(label, run, dev, steps)
 
+    # ``launches`` is the count on the kernel's own main path: pipes8 for
+    # the Split -> FW -> NAT -> Merge kernels, the chain for maglev
     kernels = []
-    for name in ("crc16", "payload_store", "payload_fetch", "acl_match"):
+    for name in REPLACES:
         r = times[name]
+        main_path = "pipes8" if name in DATAPLANE_KERNELS else "chain"
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=counts["pipes8"][name],
+            replaces=REPLACES[name], launches=counts[main_path][name],
             launches_recirc=counts["recirc1"][name],
+            launches_chain=counts["chain"][name],
             max_abs_err=err[name], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))

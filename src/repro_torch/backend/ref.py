@@ -75,10 +75,18 @@ def maglev_hash5(src_ip, dst_ip, src_port, dst_port, proto) -> torch.Tensor:
 
 def maglev_select(src_ip, dst_ip, src_port, dst_port, proto,
                   table, backend_ips) -> torch.Tensor:
-    """Backend VIP per packet: hash the 5-tuple, index the lookup table."""
+    """Backend VIP per packet: hash the 5-tuple, index the lookup table.
+
+    ``table`` is (T,), shared by every pipe, or (..., T) with one row per
+    pipe of the (..., B) packets (an LB fault picks the live or degraded
+    table per pipe); each packet reads its own pipe's row."""
     h = maglev_hash5(src_ip, dst_ip, src_port, dst_port, proto)
-    idx = torch.remainder(h, table.shape[0]).to(torch.int64)
-    return backend_ips[table[idx].to(torch.int64)]
+    idx = torch.remainder(h, table.shape[-1]).to(torch.int64)
+    if table.dim() == 1:
+        chosen = table[idx]
+    else:
+        chosen = torch.gather(table, -1, idx)
+    return backend_ips[chosen.to(torch.int64)]
 
 
 # ---------------------------------------------------------------------------

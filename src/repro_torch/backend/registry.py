@@ -37,19 +37,6 @@ def _kernel(module: str, fn: str) -> Callable:
     return call
 
 
-def _maglev_not_ported(*_args):
-    raise NotImplementedError(
-        "maglev_select has no CUDA kernel yet: it arrives with the FW->NAT->LB "
-        "slice (repro/kernels/maglev/kernel.py::maglev_kernel); use "
-        "backend='ref'")
-
-
-def _maglev_auto(*args):
-    if args[0].device.type == "cpu":
-        return R.maglev_select(*args)
-    return _maglev_not_ported(*args)
-
-
 _REGISTRY: dict[str, Primitive] = {
     p.name: p for p in (
         Primitive("crc16_tag", R.crc16_tag,
@@ -58,8 +45,9 @@ _REGISTRY: dict[str, Primitive] = {
         Primitive("acl_match", R.acl_match,
                   _kernel("acl_match", "acl_match_cuda"),
                   _kernel("acl_match", "acl_match")),
-        Primitive("maglev_select", R.maglev_select, _maglev_not_ported,
-                  _maglev_auto),
+        Primitive("maglev_select", R.maglev_select,
+                  _kernel("maglev", "maglev_select_cuda"),
+                  _kernel("maglev", "maglev_select")),
         Primitive("payload_store", R.payload_store,
                   _kernel("payload_store", "payload_store_cuda"),
                   _kernel("payload_store", "payload_store")),

@@ -1,10 +1,12 @@
-"""Carry state across from the reference package through numpy.
+"""Carry state and parameters across from the reference package through
+numpy.
 
 The reference's packets, switch state and NF-chain states are pytrees of
 arrays; ``np.asarray`` turns each leaf into numpy.  These helpers build the
 port's counterparts from such objects (anything with the same attribute or
 key names whose leaves ``np.asarray`` accepts), so the same numbers feed
-both packages.  Nothing here imports the reference.
+both packages.  NFs, chains and scenario points are rebuilt from their
+class names and fields.  Nothing here imports the reference.
 """
 from __future__ import annotations
 
@@ -16,8 +18,16 @@ import torch
 from repro_torch.core.packet import FIELDS, PacketBatch
 from repro_torch.core.park import ParkState
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.nf.chain import Chain
 from repro_torch.nf.firewall import Firewall
+from repro_torch.nf.macswap import MacSwap
+from repro_torch.nf.maglev import MaglevLB
 from repro_torch.nf.nat import Nat
+from repro_torch.scenarios.runner import Prepared
+from repro_torch.scenarios.spec import ScenarioSpec
+from repro_torch.switchsim.faults import FaultArrays, FaultSpec
+
+_NFS = {cls.__name__: cls for cls in (Firewall, Nat, MaglevLB, MacSwap)}
 
 
 def tensor(a, device=DEFAULT_DEVICE) -> torch.Tensor:
@@ -42,20 +52,73 @@ def park_state(src, device=DEFAULT_DEVICE) -> ParkState:
                         for f in dataclasses.fields(ParkState)})
 
 
+def _shared(a, device) -> torch.Tensor:
+    """A configuration array the port keeps once for every pipe: the first
+    pipe's row of a per-pipe (P, ...) reference state."""
+    a = np.asarray(a)
+    return tensor(a.reshape(-1, a.shape[-1])[0] if a.ndim > 1 else a, device)
+
+
 def chain_states(nfs: tuple, src_states, device=DEFAULT_DEVICE) -> tuple:
     """Chain states for ``nfs`` (the port's NF objects) from the
     reference's per-NF states, in chain order."""
     out = []
     for nf, st in zip(nfs, src_states):
         if isinstance(nf, Firewall):
-            rules = np.asarray(st)
-            out.append(tensor(rules.reshape(-1, rules.shape[-1])[0]
-                              if rules.ndim > 1 else rules, device))
+            out.append(_shared(st, device))
         elif isinstance(nf, Nat):
             out.append({k: tensor(v, device) for k, v in st.items()})
+        elif isinstance(nf, MaglevLB):
+            out.append({k: _shared(v, device) for k, v in st.items()})
+        elif isinstance(nf, MacSwap):
+            out.append(())
         else:
             raise TypeError(f"no conversion for NF {type(nf).__name__}")
     return tuple(out)
+
+
+def _nf(src):
+    """The port's NF of the same class name as ``src``, with its fields."""
+    name = type(src).__name__
+    if name not in _NFS:
+        raise TypeError(f"no port of NF {name} (have {sorted(_NFS)})")
+    cls = _NFS[name]
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(src, f.name)
+        kw[f.name] = tuple(int(x) for x in v) if isinstance(v, tuple) else v
+    return cls(**kw)
+
+
+def chain(src_chain) -> Chain:
+    """The port's Chain from a reference chain (anything with ``nfs``)."""
+    return Chain(tuple(_nf(x) for x in src_chain.nfs))
+
+
+def scenario_spec(src) -> ScenarioSpec:
+    """The port's ScenarioSpec with the fields of ``src``, on the port's
+    ``auto`` backend (the reference's backend names are others)."""
+    kw = {f.name: getattr(src, f.name)
+          for f in dataclasses.fields(ScenarioSpec)}
+    kw["fault"] = FaultSpec(**{f.name: getattr(src.fault, f.name)
+                               for f in dataclasses.fields(FaultSpec)})
+    kw["backend"] = "auto"
+    return ScenarioSpec(**kw)
+
+
+def prepared(src) -> Prepared:
+    """A prepared scenario point (traffic, chain, traces, steering stats,
+    fault masks) from the reference runner's, on the CPU, so the port's
+    runner executes exactly the reference's inputs."""
+    fa = src.faults
+    return Prepared(
+        spec=scenario_spec(src.spec),
+        pkts=packet_batch(src.pkts, "cpu"), chain=chain(src.chain),
+        traces=packet_batch(src.traces, "cpu"),
+        steer_stats=dict(src.steer_stats), n_pipes=int(src.n_pipes),
+        faults=FaultArrays(server_up=np.array(fa.server_up, bool),
+                           lb_up=np.array(fa.lb_up, bool),
+                           drain=np.array(fa.drain, bool)))
 
 
 def numpy_packets(rng: np.random.Generator, batch: int, pmax: int,

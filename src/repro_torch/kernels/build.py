@@ -27,7 +27,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("crc16.cu", "acl_match.cu", "payload_store.cu",
-           "payload_fetch.cu")
+           "payload_fetch.cu", "maglev.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +38,8 @@ SIGNATURES = {
     "pp_payload_store": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i64, _i64,
                          _vp),
     "pp_payload_fetch": (_vp, _vp, _vp, _vp, _i64, _i64, _i64, _i64, _vp),
+    "pp_maglev_select": (_vp, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _vp, _vp,
+                         _i64, _i64, _vp),
 }
 
 

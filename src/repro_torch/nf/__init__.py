@@ -1,3 +1,3 @@
 """Shallow network functions (paper §6.1): header-only packet processing.
-This slice ports the Firewall -> NAT chain; Maglev LB and MacSwap follow
-with the FW -> NAT -> LB slice."""
+Firewall, NAT, the Maglev load balancer and the MAC swapper, composed by
+``chain.Chain``."""

@@ -1,7 +1,8 @@
 """NF chain composition and the Explicit-Drop integration point (port of
-``repro.nf.chain``; paper §1 "FW-NAT", §6.2.4).
+``repro.nf.chain``; paper §1 "FW-NAT", §6.2.4, §7 "FW-NAT-LB").
 
-A chain is an ordered tuple of NFs; each NF is a function
+A chain is an ordered tuple of NFs (``Firewall``, ``Nat``, ``MaglevLB``,
+``MacSwap``); each NF is a function
 ``(state, pkts) -> (state, pkts, drop_mask, cycles)`` touching headers
 only.  ``to_explicit_drops`` turns chain-dropped, parked packets into
 truncated OP=drop notifications so Merge frees their slots at once.
@@ -18,7 +19,7 @@ from repro_torch.device import DEFAULT_DEVICE
 
 @dataclasses.dataclass(frozen=True)
 class Chain:
-    nfs: tuple  # NF dataclasses (Firewall, Nat)
+    nfs: tuple  # NF dataclasses (Firewall, Nat, MaglevLB, MacSwap)
 
     def init_state(self, device=DEFAULT_DEVICE,
                    pipes: int | None = None) -> tuple:
