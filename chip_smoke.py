@@ -35,11 +35,36 @@ Phases (any failure raises, so the script exits non-zero):
    occupancy and gain must be identical; ``verify_oracle`` must hold on
    every CPU point; the datacenter gain must be positive and higher with
    recirculation; all five kernels must launch during the card run.
-6. Traces, after every timed run: the first steps of the 8-pipe run and
-   of each chain group, timed untraced and then repeated under
-   ``torch.profiler``, give device kernels per step and the device's busy
-   time against the untraced wall time.
-7. A ``kernels`` JSON line, the card line, and the final ``ok`` line.
+6. Parked-KV serving at full width: ``repro_torch.launch.serve`` on
+   Qwen2.5-3B (full config, 36 layers, weights from a seeded generator on
+   the card), 4 requests of prompt 128 and gen 32, max_batch 4, 16-token
+   pages, 256 pages, request 2 cancelled after 16 decode steps; once with
+   the ``paged_attention`` kernel (backend ``auto``) and once replayed,
+   teacher-forced, with the plain version on the card.  Pool counters,
+   pages, generations, drops and header/payload bytes must be identical;
+   splits = merges + explicit drops + evictions + occupancy with occupancy
+   0; the logits within 0.25 of each other; the generated tokens equal
+   wherever the plain top-2 margin exceeds twice that error; and the
+   kernel launched exactly layers x token steps times.  Then reduced
+   Gemma-7B through the reference test's lifecycle (admit two, three
+   steps, finish, cancel) on the card and on the CPU from the same
+   weights: integer stats identical, logits within 0.08.
+7. Traces, after every timed run: the first steps of the 8-pipe run, of
+   each chain group and of a serving prefill, timed untraced and then
+   repeated under ``torch.profiler``, give device kernels per step and the
+   device's busy time against the untraced wall time.
+8. A ``kernels`` JSON line, the card line, and the final ``ok`` line.
+
+Phase 2 also holds ``paged_attention`` against its plain version within
+the reference's atol 0.02 / rtol 0.05 at the reference's sweep shapes, the
+engine's (B, K, G, E) = (1, 2, 8, 128) with 16-token pages, a batched
+(8, 2, 8, 128) with up to 2048 tokens, Gemma's (2, 16, 1, 256), f32 and
+head_dim 16, and -1 pages inside and after the length, a length on a page
+boundary, lengths 1 and 0; it is timed at the engine and batched shapes
+beside ``F.scaled_dot_product_attention`` on K/V gathered beforehand (the
+gather timed apart) and its bound: the larger of the live K/V, q, output
+and page-table bytes over 3.35 TB/s and 4 B K G len E operations over
+989 TFLOP/s.
 
 Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
 """
@@ -47,7 +72,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -57,6 +81,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # non-tensor 32-bit rate, the same data sheet
+BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core rate, the same sheet
 # 32-bit integer operations per packet: crc16 takes 4 byte extractions
 # (2 ops), and per byte a shift and xor plus 8 steps of shift, mask, shift,
 # mask and a conditional xor; acl_match a compare and an or per rule.
@@ -65,24 +90,28 @@ CRC16_OPS = 4 * 2 + 4 * (2 + 8 * 5)
 MAGLEV_OPS = 4 * 2 + 2
 SEED = 20200611
 RECIRC1_PACKETS = 4096  # the chain phase runs recirculation at full depth
-PROFILE_STEPS = 4  # traced steps of each traced run (each traced step
-                   # costs ~24k device kernels of profiler bookkeeping)
+PROFILE_STEPS = 2  # traced steps of each dataplane trace: each traced
+                   # step costs ~24k device kernels of profiler bookkeeping,
+                   # and with 4 steps the traces took over half the run
+PROFILE_TOKENS = 8  # traced token steps of the serving prefill
 REPLACES = {
     "crc16": "src/repro/kernels/crc16/kernel.py:40",
     "payload_store": "src/repro/kernels/payload_store/kernel.py:49",
     "payload_fetch": "src/repro/kernels/payload_fetch/kernel.py:49",
     "acl_match": "src/repro/kernels/acl_match/kernel.py:28",
     "maglev": "src/repro/kernels/maglev/kernel.py:37",
+    "paged_attention": "src/repro/kernels/paged_attention/kernel.py:68",
 }
-# the kernels of the Split -> FW -> NAT -> Merge path (phase 4)
+# the kernels of the Split -> FW -> NAT -> Merge path (phase 4), and of the
+# §7 chain (phase 5)
 DATAPLANE_KERNELS = ("crc16", "payload_store", "payload_fetch", "acl_match")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
+CHAIN_KERNELS = DATAPLANE_KERNELS + ("maglev",)
+# paged attention against its plain version: the reference's tolerances
+# (tests/test_kernels.py), and the bounds of the serving phase
+PAGED_ATOL, PAGED_RTOL = 0.02, 0.05
+SERVE_LOGIT_ERR = 0.25     # full width: kernel run vs plain replay
+REDUCED_LOGIT_ERR = 0.08   # reduced Gemma: card vs CPU (the reference's
+                           # engine tolerance, tests/test_serving.py)
 
 
 def device_ms(fn, reps: int = 30) -> float:
@@ -388,13 +417,15 @@ def sync(dev) -> None:
 
 
 def device_busy(run, dev) -> dict:
-    """Device kernels and device busy time of one traced run."""
+    """Device kernels and device busy time of one traced run.  Only device
+    activity is recorded: the measure reads device events alone, and
+    recording every host-side operator as well made the traces take over
+    half of the script's time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run(dev)
         sync(dev)
     by_name: dict[str, list] = {}
@@ -514,8 +545,7 @@ def chain_phase(dev):
     """Phase 5.  Returns the launch counts of the card run and the runs to
     trace once every timed run is over."""
     from repro_torch.core.packet import map_fields
-    from repro_torch.kernels import KERNELS, launch_counts
-    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.scenarios import family, run_matrix, verify_oracle
     from repro_torch.switchsim.engine import run_pipes
 
@@ -566,7 +596,7 @@ def chain_phase(dev):
         print(f"chain group {[m.name for m in members]}: card {gw:.3f} s "
               f"({offered / gw:.1f} offered pkt/s), CPU {cw:.3f} s")
     print(f"chain launches on the card: {counts}")
-    missing = [k for k in KERNELS if counts[k] == 0]
+    missing = [k for k in CHAIN_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"chain: kernels never launched on the card: "
                              f"{missing}")
@@ -586,17 +616,366 @@ def chain_phase(dev):
     return counts, traced
 
 
+# --------------------------------------------------------------------------
+# phase 2, serving side: paged attention against its plain version
+# --------------------------------------------------------------------------
+
+def paged_inputs(gen, b, kh, g, e, page, mp, dev, npages=None,
+                 lengths=None, tables=None, dtype=torch.bfloat16):
+    """q (B, K, G, E), pools (P, page, K, E), page table (B, MP) and
+    lengths.  Without ``tables`` (and ``lengths``) each request gets a
+    random number of distinct live pages and a random length within them,
+    as the reference's sweep test draws them."""
+    npages = npages or mp * b + 2
+    q = torch.randn((b, kh, g, e), generator=gen).to(dtype)
+    kp = torch.randn((npages, page, kh, e), generator=gen).to(dtype)
+    vp = torch.randn((npages, page, kh, e), generator=gen).to(dtype)
+    if tables is None:
+        pt = torch.full((b, mp), -1, dtype=torch.int32)
+        ln = torch.zeros((b,), dtype=torch.int32)
+        for i in range(b):
+            n = int(torch.randint(1, mp + 1, (1,), generator=gen))
+            pt[i, :n] = torch.randperm(npages, generator=gen)[:n]
+            ln[i] = int(torch.randint(1, n * page + 1, (1,), generator=gen))
+    else:
+        pt = torch.tensor(tables, dtype=torch.int32)
+        ln = torch.tensor(lengths, dtype=torch.int32)
+    return [x.to(dev) for x in (q, kp, vp, pt, ln)]
+
+
+def paged_cases(gen, dev) -> dict:
+    """Label -> inputs of every paged-attention case of phase 2."""
+    cases = {}
+    for shape in ((4, 2, 4, 64, 16, 6), (2, 1, 8, 128, 128, 4),
+                  (8, 4, 1, 32, 8, 3)):
+        cases[f"sweep {shape}"] = paged_inputs(gen, *shape, dev)
+    cases["engine (1, 2, 8, 128) page 16 MP 12"] = paged_inputs(
+        gen, 1, 2, 8, 128, 16, 12, dev, npages=256,
+        tables=[list(range(3, 13)) + [-1, -1]], lengths=[150])
+    cases["batched (8, 2, 8, 128) page 16 MP 128"] = batched_paged(gen, dev)
+    cases["gemma (2, 16, 1, 256) page 16 MP 8"] = paged_inputs(
+        gen, 2, 16, 1, 256, 16, 8, dev)
+    cases["f32 (4, 2, 4, 64) page 16 MP 6"] = paged_inputs(
+        gen, 4, 2, 4, 64, 16, 6, dev, dtype=torch.float32)
+    cases["reduced head_dim 16 (3, 1, 4, 16) page 4 MP 8"] = paged_inputs(
+        gen, 3, 1, 4, 16, 4, 8, dev)
+    # edge cases, page 16, MP 6: a -1 page inside the length (also as the
+    # first page), -1 pages after it, a length on a page boundary, lengths
+    # 1 and 0, and a request with no live page at all
+    cases["edges (7, 2, 4, 64) page 16 MP 6"] = paged_inputs(
+        gen, 7, 2, 4, 64, 16, 6, dev, npages=40,
+        tables=[[1, -1, 2, 3, -1, -1], [-1, 4, 5, -1, -1, -1],
+                [6, 7, 8, -1, -1, -1], [9, 10, -1, -1, 11, 12],
+                [13, -1, -1, -1, -1, -1], [14, 15, -1, -1, -1, -1],
+                [-1, -1, -1, -1, -1, -1]],
+        lengths=[60, 40, 20, 32, 1, 0, 30])
+    return cases
+
+
+def batched_paged(gen, dev):
+    """8 requests x 2 KV heads x 8 query heads per KV head, E = 128,
+    16-token pages, up to 128 pages (2048 tokens) each, distinct pages."""
+    b, mp, page = 8, 128, 16
+    lengths = torch.randint(1, mp * page + 1, (b,), generator=gen)
+    lengths[0] = mp * page
+    perm = torch.randperm(b * mp + 16, generator=gen)[:b * mp]
+    pt = perm.reshape(b, mp).to(torch.int32)
+    live = (torch.arange(mp)[None, :] * page) < lengths[:, None]
+    pt = torch.where(live, pt, -1)
+    return paged_inputs(gen, b, 2, 8, 128, page, mp, dev,
+                        npages=b * mp + 16, tables=pt.tolist(),
+                        lengths=lengths.tolist())
+
+
+def paged_close(label: str, got, want) -> float:
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    worst = float((err - PAGED_RTOL * want.abs()).max())
+    if not torch.isfinite(got).all() or worst > PAGED_ATOL:
+        raise AssertionError(f"paged_attention {label}: kernel differs from "
+                             f"plain version beyond atol {PAGED_ATOL} + rtol "
+                             f"{PAGED_RTOL}: max abs err {float(err.max())}")
+    return float(err.max())
+
+
+def check_paged(dev) -> float:
+    from repro_torch.backend import ref as R
+    from repro_torch.kernels import paged_attention
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    err = 0.0
+    for label, args in paged_cases(gen, dev).items():
+        got = paged_attention.paged_decode_attention_cuda(*args)
+        want = R.paged_decode_attention(*args)
+        e = paged_close(label, got, want)
+        if label.startswith("edges"):
+            dead = got[5:].float().abs().max()
+            if float(dead) != 0.0:
+                raise AssertionError("paged_attention: a request with no "
+                                     f"live token gave {float(dead)}, not 0")
+        err = max(err, e)
+        print(f"paged_attention {label}: max abs err {e:.6f}")
+    torch.cuda.synchronize()
+    return err
+
+
+def paged_bound(q, kp, pt, ln) -> dict:
+    b, kh, g, e = q.shape
+    live = int(ln.clamp(min=0).sum())
+    item = kp.element_size()
+    nbytes = (2 * live * kh * e * item + 2 * q.numel() * item
+              + pt.numel() * 4 + ln.numel() * 4)
+    return dict(bound_bytes=nbytes, bound_ops=4 * live * kh * g * e)
+
+
+def time_paged(dev) -> dict:
+    """Kernel, plain version, SDPA on gathered K/V and bound at the
+    engine's shape (the row of the kernels line) and the batched shape."""
+    import torch.nn.functional as F
+    from repro_torch.backend import ref as R
+    from repro_torch.kernels import paged_attention
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    shapes = {
+        "engine": paged_inputs(gen, 1, 2, 8, 128, 16, 12, dev, npages=256,
+                               tables=[list(range(3, 13)) + [-1, -1]],
+                               lengths=[160]),
+        "batched": batched_paged(gen, dev),
+    }
+    rows = {}
+    for name, (q, kp, vp, pt, ln) in shapes.items():
+        b, kh, g, e = q.shape
+        page, mp = kp.shape[1], pt.shape[1]
+
+        def gather():
+            idx = pt.clamp(min=0).long()
+            k = kp[idx].reshape(b, mp * page, kh, e).transpose(1, 2)
+            v = vp[idx].reshape(b, mp * page, kh, e).transpose(1, 2)
+            return k, v
+
+        k, v = gather()
+        pos = torch.arange(mp * page, device=dev)[None, :]
+        mask = (pos < ln[:, None]) & (pt >= 0).repeat_interleave(page, 1)
+        mask = mask[:, None, None, :]
+        qs = q.reshape(b, kh * g, 1, e)
+        r = dict(
+            ms=device_ms(lambda: paged_attention.paged_decode_attention_cuda(
+                q, kp, vp, pt, ln)),
+            plain_ms=device_ms(lambda: R.paged_decode_attention(
+                q, kp, vp, pt, ln)),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                qs, k, v, attn_mask=mask, enable_gqa=True)),
+            gather_ms=device_ms(gather),
+            **paged_bound(q, kp, pt, ln))
+        by_bytes = r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+        by_ops = r["bound_ops"] / BF16_FLOP_PER_S * 1e3
+        r["bound_ms"] = max(by_bytes, by_ops)
+        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        rows[name] = r
+        print(f"time paged_attention {name} (B, K, G, E) = {tuple(q.shape)}, "
+              f"page {page}, MP {mp}, {int(ln.sum())} live tokens: kernel "
+              f"{r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, library "
+              f"(SDPA on gathered K/V) {r['library_ms']:.6f} ms, gather "
+              f"{r['gather_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms by "
+              f"{r['bound_by']} ({r['bound_bytes']} bytes, "
+              f"{r['bound_ops']} operations)")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 6: parked-KV serving
+# --------------------------------------------------------------------------
+
+class Recorder:
+    """Wraps an engine's ``_forward_token`` to keep, per token step, the
+    request, position, input token and logits (on the engine's device)."""
+
+    def __init__(self, eng):
+        self.steps = []
+        inner = eng._forward_token
+
+        def forward(slot, token):
+            logits, k, v = inner(slot, token)
+            self.steps.append((int(eng.rid[slot]), int(eng.pos[slot]),
+                               int(token), logits))
+            return logits, k, v
+        eng._forward_token = forward
+
+    def forcing(self):
+        """A ``before_step`` hook that feeds a replay the recorded input
+        tokens (teacher forcing)."""
+        tokens = {(r, p): t for r, p, t, _ in self.steps}
+
+        def force(eng):
+            for slot in np.where(eng.active)[0]:
+                eng.last_tok[slot] = tokens[(int(eng.rid[slot]),
+                                             int(eng.pos[slot]))]
+        return force
+
+
+def same_engines(label, a, b) -> None:
+    same(f"{label} stats", a.stats(), b.stats())
+    same(f"{label} pages", a.pages, b.pages)
+    same(f"{label} gens", a.gens, b.gens)
+    same(f"{label} dropped", a.dropped, b.dropped)
+    same(f"{label} header_bytes", a.header_bytes_total, b.header_bytes_total)
+    same(f"{label} payload_bytes_avoided", a.payload_bytes_avoided,
+         b.payload_bytes_avoided)
+    d = a.stats()
+    total = (d["merges"] + d["explicit_drops"] + d["evictions"]
+             + d["occupancy"])
+    if d["splits"] != total or d["occupancy"] != 0:
+        raise AssertionError(f"{label}: splits {d['splits']} != merges + "
+                             f"explicit drops + evictions + occupancy "
+                             f"({total}), or pages left parked: {d}")
+
+
+def logit_errors(label, run, replay, bound) -> tuple[float, int]:
+    """Max |logit difference| over the steps, and the number of steps whose
+    replay top-2 margin is too small to decide the token.  Raises if the
+    error exceeds ``bound`` or a decided token differs."""
+    if [s[:3] for s in run.steps] != [s[:3] for s in replay.steps]:
+        raise AssertionError(f"{label}: the replay took other steps")
+    a = torch.stack([s[3] for s in run.steps]).float().cpu()
+    b = torch.stack([s[3] for s in replay.steps]).float().cpu()
+    err = float((a - b).abs().max())
+    top = torch.topk(b, 2, dim=-1).values
+    decided = (top[:, 0] - top[:, 1]) > 2 * err
+    differ = decided & (a.argmax(-1) != b.argmax(-1))
+    if not err <= bound or bool(differ.any()):
+        raise AssertionError(f"{label}: max |dlogit| {err} (bound {bound}), "
+                             f"{int(differ.sum())} decided tokens differ")
+    return err, int((~decided).sum())
+
+
+def to_device(tree: dict, dev) -> dict:
+    return {k: to_device(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def lifecycle(eng, before_step=None) -> None:
+    """The reference engine test's lifecycle (tests/test_serving.py): admit
+    two requests, three decode steps, finish one, cancel the other."""
+    if not (eng.admit(1, [1, 2, 3, 4, 5]) and eng.admit(2, [9, 8])):
+        raise AssertionError("lifecycle: admission failed")
+    for _ in range(3):
+        if before_step is not None:
+            before_step(eng)
+        eng.step()
+    out = eng.finish(1)
+    if len(out) != 5 + 1 + 3:
+        raise AssertionError(f"lifecycle: request 1 gave {out}")
+    eng.finish(2, cancel=True)
+    d = eng.stats()
+    if not (d["explicit_drops"] > 0 and d["occupancy"] == 0
+            and d["goodput_gain"] > 10):
+        raise AssertionError(f"lifecycle: stats {d}")
+
+
+def serve_phase(dev):
+    """Phase 6.  Returns the launch counts of the kernel run and the run to
+    trace once every timed run is over."""
+    from repro_torch import configs
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import (engine_config, init_params,
+                                          make_prompts, serve)
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    from repro_torch.serving.pool import PoolConfig
+
+    cfg = configs.get("qwen2.5-3b")
+    lm = LM(cfg)
+    t0 = time.perf_counter()
+    params = init_params(cfg, dev)
+    sync(dev)
+    print(f"serve: {cfg.name} full config ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"heads, head_dim {cfg.head_dim}, vocab {cfg.vocab_padded()}), "
+          f"~{cfg.param_count() / 1e9:.2f} B parameters drawn "
+          f"on {dev} in {time.perf_counter() - t0:.1f} s")
+    ecfg = engine_config(128, 32, max_batch=4, pages=256, page_tokens=16)
+    prompts = make_prompts(4, 128, cfg.vocab_size)
+    cancel = {2: 16}
+    runs = {}
+    for backend in ("auto", "ref"):
+        eng = ServeEngine(lm, params, ecfg, backend=backend)
+        rec = Recorder(eng)
+        hook = None if backend == "auto" else runs["auto"][1].forcing()
+        sync(dev)
+        reset_launch_counts()
+        rep = serve(eng, prompts, 32, cancel=cancel, before_step=hook)
+        counts = launch_counts()
+        runs[backend] = (eng, rec, rep, counts)
+        steps = len(rec.steps)
+        what = ("kernel" if backend == "auto"
+                else "plain version, teacher-forced")
+        print(f"serve {backend} ({what}): "
+              f"{rep.done} done, {rep.cancelled} cancelled, {steps} token "
+              f"steps and {rep.tokens} decode tokens in {rep.seconds:.3f} s "
+              f"({steps / rep.seconds:.1f} token steps/s, "
+              f"{rep.tokens / rep.seconds:.1f} decode tok/s); "
+              f"paged_attention launches {counts['paged_attention']}")
+    (eng_k, rec_k, rep_k, counts_k), (eng_p, rec_p, rep_p, counts_p) = \
+        runs["auto"], runs["ref"]
+    same_engines("serve", eng_k, eng_p)
+    same("serve report", (rep_k.done, rep_k.cancelled, rep_k.tokens),
+         (rep_p.done, rep_p.cancelled, rep_p.tokens))
+    want = cfg.num_layers * len(rec_k.steps)
+    if counts_k["paged_attention"] != want or counts_p["paged_attention"]:
+        raise AssertionError(f"serve: paged_attention launched "
+                             f"{counts_k['paged_attention']} times, want "
+                             f"layers x token steps = {want} (plain replay "
+                             f"{counts_p['paged_attention']}, want 0)")
+    err, undecided = logit_errors("serve", rec_k, rec_p, SERVE_LOGIT_ERR)
+    print(f"serve: kernel run vs plain replay: stats, pages, gens, drops and "
+          f"header bytes identical ({eng_k.stats()}); max |dlogit| "
+          f"{err:.6f} over {len(rec_k.steps)} steps; tokens identical where "
+          f"the top-2 margin > 2 x that, {undecided} steps too close to "
+          f"call; launches = {cfg.num_layers} x {len(rec_k.steps)}")
+
+    # reduced Gemma-7B, the reference test's lifecycle, card against CPU
+    rcfg = reduced(configs.get("gemma-7b"))
+    cpu_params = init_params(rcfg, "cpu")
+    recs = {}
+    for d, prm in (("cpu", cpu_params), ("card", to_device(cpu_params, dev))):
+        eng = ServeEngine(LM(rcfg), prm, EngineConfig(
+            max_batch=4, max_pages_per_req=8,
+            pool=PoolConfig(num_pages=64, page_tokens=4)))
+        rec = Recorder(eng)
+        lifecycle(eng, None if d == "cpu" else recs["cpu"][1].forcing())
+        recs[d] = (eng, rec)
+    same_engines("reduced gemma", recs["card"][0], recs["cpu"][0])
+    rerr, rund = logit_errors("reduced gemma", recs["cpu"][1],
+                              recs["card"][1], REDUCED_LOGIT_ERR)
+    print(f"serve reduced {rcfg.name}: card (kernel) vs CPU (plain): stats "
+          f"identical ({recs['card'][0].stats()}), max |dlogit| {rerr:.6f} "
+          f"over {len(recs['card'][1].steps)} steps, {rund} too close to "
+          "call")
+
+    def traced_run(d):
+        e = ServeEngine(lm, params, ecfg)
+        e.admit(0, prompts[0][:PROFILE_TOKENS])
+    return counts_k, [("serve qwen2.5-3b prefill", traced_run,
+                       PROFILE_TOKENS)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.device import card_line
     from repro_torch.kernels import build
 
     dev = torch.device("cuda", 0)
-    card = card_line()
+    card = card_line(dev)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
+
+    def stamp(done: str) -> None:
+        print(f"[{time.perf_counter() - t0:.1f} s] {done} done")
+
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({build.build().name})")
@@ -604,30 +983,47 @@ def main() -> int:
           if (build.BUILD_DIR / "build.log").exists() else "build: cached")
 
     err = check_kernels(dev)
+    err["paged_attention"] = check_paged(dev)
     times = time_kernels(dev)
+    paged = time_paged(dev)
+    times["paged_attention"] = paged["engine"]
+    stamp("phase 2 (kernels)")
     quickstart(dev)
     counts, traced = engine(dev)
+    stamp("phases 3-4 (quickstart, engine)")
     counts["chain"], chain_traced = chain_phase(dev)
-    # phase 6, after every timed run: a torch.profiler session slows the
+    stamp("phase 5 (chain)")
+    counts["serve"], serve_traced = serve_phase(dev)
+    stamp("phase 6 (serving)")
+    # phase 7, after every timed run: a torch.profiler session slows the
     # launches that follow it in the same process
-    for label, run, steps in traced + chain_traced:
+    for label, run, steps in traced + chain_traced + serve_traced:
         profile_steps(label, run, dev, steps)
+    stamp("phase 7 (traces)")
 
     # ``launches`` is the count on the kernel's own main path: pipes8 for
-    # the Split -> FW -> NAT -> Merge kernels, the chain for maglev
+    # the Split -> FW -> NAT -> Merge kernels, the chain for maglev, the
+    # full-width serving run for paged_attention (whose times are those of
+    # the engine's shape; ``batched`` holds the batched shape's)
+    main_path = dict.fromkeys(DATAPLANE_KERNELS, "pipes8")
+    main_path.update(maglev="chain", paged_attention="serve")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for name in REPLACES:
         r = times[name]
-        main_path = "pipes8" if name in DATAPLANE_KERNELS else "chain"
-        kernels.append(dict(
+        row = dict(
             name=name, route="cuda",
             source=f"src/repro_torch/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=counts[main_path][name],
+            replaces=REPLACES[name], launches=counts[main_path[name]][name],
+            launches_pipes8=counts["pipes8"][name],
             launches_recirc=counts["recirc1"][name],
             launches_chain=counts["chain"][name],
-            max_abs_err=err[name], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            launches_serve=counts["serve"][name],
+            max_abs_err=err[name], **{k: r[k] for k in keys})
+        if name == "paged_attention":
+            row["batched"] = {k: paged["batched"][k]
+                              for k in keys + ("gather_ms",)}
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Frozen backend selection for the dataplane-primitive registry.
 
 Port of ``repro.backend.config``.  A ``BackendConfig`` names which
-implementation of each hot-path primitive the dataplane runs:
+implementation of each hot-path primitive the dataplane (and, for
+``paged_attention``, the serving engine) runs:
 
   * ``"ref"``  — the plain PyTorch version (``repro_torch.backend.ref``),
                  on whatever device its tensors lie;
@@ -19,7 +20,7 @@ import dataclasses
 
 # The registry asserts it implements exactly this set, in this order.
 PRIMITIVES = ("crc16_tag", "acl_match", "maglev_select", "payload_store",
-              "payload_fetch")
+              "payload_fetch", "paged_attention")
 
 BACKENDS = ("ref", "cuda", "auto")
 

@@ -2,9 +2,12 @@
 ``repro.backend.ref``).
 
 One function per registry primitive.  They run on CPU tensors by default
-and on CUDA tensors only when ``backend="ref"`` is chosen explicitly; each
-CUDA kernel in ``repro_torch.kernels`` must match its primitive here
-bit-exactly.  Every function accepts leading batch (pipe) dimensions.
+and on CUDA tensors only when ``backend="ref"`` is chosen explicitly.  Each
+dataplane kernel in ``repro_torch.kernels`` must match its primitive here
+bit-exactly, and every dataplane function accepts leading batch (pipe)
+dimensions.  ``paged_decode_attention`` (the serving side, port of
+``repro.kernels.paged_attention.ref``) is floating point: its kernel agrees
+within the reference's tolerances (atol 0.02, rtol 0.05).
 
 Index rules follow the reference exactly: a negative index counts from the
 end (``i + n``), an out-of-range read is clamped and an out-of-range write
@@ -141,3 +144,44 @@ def payload_fetch(table, idx, mask):
                           reduce="amax")
     table.masked_fill_(clear.bool()[..., None], 0)
     return gathered, table
+
+
+# ---------------------------------------------------------------------------
+# paged_attention — decode attention over the parked KV pages (serving)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths):
+    """One query token per request over its paged KV history.
+
+    q: (B, K, G, E); k_pages/v_pages: (P, page, K, E); page_table: (B, MP)
+    int32 with -1 padding; lengths: (B,) tokens valid.  Returns
+    (B, K, G, E) in q's dtype.
+
+    Gather the pages (ids clamped into [0, P), as the reference's gather
+    clamps), f32 scores scaled by E**-0.5, mask tokens at or beyond the
+    length and tokens of -1 pages, softmax in f32, probabilities in the
+    value dtype, f32 PV product.  A request with no live token gives zeros,
+    as the CUDA kernel does (it never reads a -1 page); the reference
+    returns the mean of the clamped pages' values there instead.
+    """
+    b, kh, g, e = q.shape
+    npages, page = k_pages.shape[:2]
+    mp = page_table.shape[1]
+    pt = page_table.to(torch.int64).clamp(0, npages - 1)
+    k = k_pages[pt].reshape(b, mp * page, kh, e)
+    v = v_pages[pt].reshape(b, mp * page, kh, e)
+    s = torch.einsum("bkge,btke->bkgt", q.float(), k.float()) * (e ** -0.5)
+    pos = torch.arange(mp * page, device=q.device)[None, :]
+    mask = (pos < lengths.to(torch.int64)[:, None]) \
+        & (page_table >= 0).repeat_interleave(page, dim=1)
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    norm = p.sum(dim=-1, keepdim=True)
+    w = (p / norm).to(v.dtype).float()
+    out = torch.einsum("bkgt,btke->bkge", w, v.float())
+    out = torch.where(mask.any(dim=-1)[:, None, None, None], out, 0.0)
+    return out.to(q.dtype)

@@ -54,6 +54,9 @@ _REGISTRY: dict[str, Primitive] = {
         Primitive("payload_fetch", R.payload_fetch,
                   _kernel("payload_fetch", "payload_fetch_cuda"),
                   _kernel("payload_fetch", "payload_fetch")),
+        Primitive("paged_attention", R.paged_decode_attention,
+                  _kernel("paged_attention", "paged_decode_attention_cuda"),
+                  _kernel("paged_attention", "paged_decode_attention")),
     )
 }
 

@@ -1,0 +1,19 @@
+"""minitron-8b [dense]: 32L d_model=4096 32H (GQA kv=8) d_ff=16384
+vocab=256000 — pruned nemotron.  [arXiv:2407.14679; hf]"""
+from repro_torch.configs import register
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = register(ModelConfig(
+    name="minitron-8b",
+    family="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=16384,
+    vocab_size=256000,
+    act="silu",
+    rope_theta=10000.0,
+    source="[arXiv:2407.14679; hf]",
+))

@@ -1,12 +1,13 @@
 """Carry state and parameters across from the reference package through
 numpy.
 
-The reference's packets, switch state and NF-chain states are pytrees of
-arrays; ``np.asarray`` turns each leaf into numpy.  These helpers build the
-port's counterparts from such objects (anything with the same attribute or
-key names whose leaves ``np.asarray`` accepts), so the same numbers feed
-both packages.  NFs, chains and scenario points are rebuilt from their
-class names and fields.  Nothing here imports the reference.
+The reference's packets, switch state, NF-chain states, serving pool and
+LM parameters are pytrees of arrays; ``np.asarray`` turns each leaf into
+numpy.  These helpers build the port's counterparts from such objects
+(anything with the same attribute or key names whose leaves
+``np.asarray`` accepts), so the same numbers feed both packages.  NFs,
+chains and scenario points are rebuilt from their class names and
+fields.  Nothing here imports the reference.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.nf.maglev import MaglevLB
 from repro_torch.nf.nat import Nat
 from repro_torch.scenarios.runner import Prepared
 from repro_torch.scenarios.spec import ScenarioSpec
+from repro_torch.serving.pool import PoolState
 from repro_torch.switchsim.faults import FaultArrays, FaultSpec
 
 _NFS = {cls.__name__: cls for cls in (Firewall, Nat, MaglevLB, MacSwap)}
@@ -32,9 +34,30 @@ _NFS = {cls.__name__: cls for cls in (Firewall, Nat, MaglevLB, MacSwap)}
 
 def tensor(a, device=DEFAULT_DEVICE) -> torch.Tensor:
     """One array (numpy, or anything ``np.asarray`` accepts) as a tensor of
-    the same dtype on ``device``."""
-    return torch.from_numpy(np.array(np.asarray(a))).to(
-        resolve_device(device))
+    the same dtype on ``device``.  bfloat16 (``ml_dtypes.bfloat16`` in
+    numpy, which ``torch.from_numpy`` refuses) goes across bit for bit as
+    uint16."""
+    a = np.array(np.asarray(a))
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(resolve_device(device))
+
+
+def lm_params(src, device=DEFAULT_DEVICE):
+    """The port's parameter dict from the reference's parameter pytree
+    (nested dicts of arrays), leaf for leaf: same keys, shapes and
+    dtypes."""
+    if isinstance(src, dict):
+        return {k: lm_params(v, device) for k, v in src.items()}
+    return tensor(src, device)
+
+
+def pool_state(src, device=DEFAULT_DEVICE) -> PoolState:
+    """A serving PoolState from an object with the PoolState fields."""
+    return PoolState(**{f.name: tensor(_get(src, f.name), device)
+                        for f in dataclasses.fields(PoolState)})
 
 
 def _get(src, name):

@@ -20,3 +20,19 @@ def resolve_device(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def card_line(device: str | torch.device) -> str:
+    """What a measurement on ``device`` ran on: for a card, its name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit`` prints them;
+    ``"cpu"`` otherwise."""
+    import subprocess
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip()

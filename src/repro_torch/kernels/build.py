@@ -27,11 +27,12 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("crc16.cu", "acl_match.cu", "payload_store.cu",
-           "payload_fetch.cu", "maglev.cu")
+           "payload_fetch.cu", "maglev.cu", "paged_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_vp, _i64, _i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_vp, _i64, _i32, _f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                         ctypes.c_float)
 SIGNATURES = {
     "pp_crc16_tag": (_vp, _vp, _vp, _i64, _vp),
     "pp_acl_match": (_vp, _vp, _vp, _i64, _i32, _vp),
@@ -40,6 +41,8 @@ SIGNATURES = {
     "pp_payload_fetch": (_vp, _vp, _vp, _vp, _i64, _i64, _i64, _i64, _vp),
     "pp_maglev_select": (_vp, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _vp, _vp,
                          _i64, _i64, _vp),
+    "pp_paged_attention": (_vp, _vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32,
+                           _i32, _i32, _i32, _i32, _i32, _f32, _vp),
 }
 
 

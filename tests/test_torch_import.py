@@ -42,6 +42,17 @@ def test_import_loads_neither_jax_nor_reference():
     assert int(proc.stdout.split()[0]) >= 20
 
 
+def test_serving_modules_are_among_those_checked():
+    """The serving slice's modules are imported by the subprocess check
+    above and parsed by the AST check below."""
+    mods = set(_modules())
+    assert {"repro_torch.serving.pool", "repro_torch.serving.engine",
+            "repro_torch.launch.serve", "repro_torch.models.common",
+            "repro_torch.models.lm", "repro_torch.kernels.paged_attention",
+            "repro_torch.configs.base", "repro_torch.configs.reduced",
+            "repro_torch.configs.qwen2_5_3b"} <= mods
+
+
 def _imported_roots(path: Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text())):
