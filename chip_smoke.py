@@ -8,10 +8,11 @@ Phases (any failure raises, so the script exits non-zero):
    ``nvcc`` builds the CUDA kernels from ``src/repro_torch/csrc``.
 2. Kernels against their plain PyTorch versions on the card, at the main
    paths' shapes plus edge cases (B = 256 and 264, M = 4096, W = 160 and
-   352, R = 1 and 20, duplicate and masked rows; maglev at (P, B) = (2,
-   256), (2, 320) and (1, 264) with a shared 251-entry table, a per-pipe
-   table mixing the live and degraded tables, a 65537-entry table and dead
-   rows), compared exactly.  Each kernel is timed (median of 30 launches,
+   352, R = 1 and 20, duplicate and masked rows, every packet of a pipe
+   naming one row; maglev at (P, B) = (2, 256), (2, 320) and (1, 264) with
+   a shared 251-entry table, a per-pipe table mixing the live and degraded
+   tables, a 65537-entry table and dead rows), compared exactly; each
+   wrapper call must add exactly one launch to its kernel's count.  Each kernel is timed (median of 30 launches,
    CUDA events) beside its plain version, one PyTorch library call where
    one computes the same function, and its bound: the larger of the bytes
    it must move over 3.35 TB/s and its 32-bit operations over 67 T/s.
@@ -52,7 +53,9 @@ Phases (any failure raises, so the script exits non-zero):
 7. Traces, after every timed run: the first steps of the 8-pipe run, of
    each chain group and of a serving prefill, timed untraced and then
    repeated under ``torch.profiler``, give device kernels per step and the
-   device's busy time against the untraced wall time.
+   device's busy time against the untraced wall time.  One traced call of
+   ``payload_store`` and of ``paged_attention`` (engine and batched
+   shapes) must each run exactly one device kernel.
 8. A ``kernels`` JSON line, the card line, and the final ``ok`` line.
 
 Phase 2 also holds ``paged_attention`` against its plain version within
@@ -60,7 +63,12 @@ the reference's atol 0.02 / rtol 0.05 at the reference's sweep shapes, the
 engine's (B, K, G, E) = (1, 2, 8, 128) with 16-token pages, a batched
 (8, 2, 8, 128) with up to 2048 tokens, Gemma's (2, 16, 1, 256), f32 and
 head_dim 16, and -1 pages inside and after the length, a length on a page
-boundary, lengths 1 and 0; it is timed at the engine and batched shapes
+boundary, lengths 1 and 0; and across the kernel's split-K boundaries: a
+length ending mid-split, a split of -1 pages only inside the length,
+splits wholly past the length, B = 1 with MP = 128 and length 17, G = 1 at
+E = 256 over several splits, G = 20 (three blocks of query rows) and
+4-token pages under 16-token tiles.  A request with no live token must
+give zeros.  It is timed at the engine and batched shapes
 beside ``F.scaled_dot_product_attention`` on K/V gathered beforehand (the
 gather timed apart) and its bound: the larger of the live K/V, q, output
 and page-table bytes over 3.35 TB/s and 4 B K G len E operations over
@@ -137,6 +145,19 @@ def device_ms(fn, reps: int = 30) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def once(name: str, fn, *args):
+    """``fn(*args)``, a kernel wrapper, which must add exactly one launch
+    to kernel ``name``'s count."""
+    from repro_torch.kernels import launch_counts
+    before = launch_counts()[name]
+    out = fn(*args)
+    n = launch_counts()[name] - before
+    if n != 1:
+        raise AssertionError(f"{name}: one wrapper call added {n} launches "
+                             "to its count, not 1")
+    return out
 
 
 def must_equal(name: str, got, want) -> int:
@@ -226,7 +247,7 @@ def check_kernels(dev) -> dict:
         clk = torch.randint(1, 65536, (n,), generator=gen, dtype=torch.int32)
         ti, clk = ti.to(dev), clk.to(dev)
         err["crc16"] = max(err["crc16"], must_equal(
-            f"crc16 n={n}", crc16.crc16_tag_cuda(ti, clk),
+            f"crc16 n={n}", once("crc16", crc16.crc16_tag_cuda, ti, clk),
             R.crc16_tag(ti, clk)))
     for b in (256, 264):
         for r in (1, 20):
@@ -235,19 +256,28 @@ def check_kernels(dev) -> dict:
             rules = torch.randint(0, 64, (r,), generator=gen,
                                   dtype=torch.int32).to(dev)
             err["acl_match"] = max(err["acl_match"], must_equal(
-                f"acl_match b={b} r={r}", acl_match.acl_match_cuda(ip, rules),
+                f"acl_match b={b} r={r}",
+                once("acl_match", acl_match.acl_match_cuda, ip, rules),
                 R.acl_match(ip, rules)))
     for pipes, b, w in ((8, 256, 160), (1, 264, 352), (1, 264, 160),
                         (8, 264, 352)):
         t, p, i, e = store_inputs(gen, pipes, b, 4096, w, dev)
-        for label, en in (("", e), (" all-off", torch.zeros_like(e))):
-            got = payload_store.payload_store_cuda(t.clone(), p, i, en)
-            want = R.payload_store(t.clone(), p, i, en)
+        # every packet of a pipe names one row (pipe 0 as -1, the last row)
+        one = torch.arange(pipes, device=dev)[:, None] * 11 + 3
+        one = one.expand(pipes, b).to(torch.int32).clone()
+        one[0] = -1
+        for label, ix, en in (("", i, e), (" all-off", i, torch.zeros_like(e)),
+                              (" one row", one, e),
+                              (" one row all-on", one, torch.ones_like(e))):
+            got = once("payload_store", payload_store.payload_store_cuda,
+                       t.clone(), p, ix, en)
+            want = R.payload_store(t.clone(), p, ix, en)
             err["payload_store"] = max(err["payload_store"], must_equal(
                 f"payload_store {pipes}x{b}x{w}{label}", got, want))
         t, i, mk = fetch_inputs(gen, pipes, b, 4096, w, dev)
         for label, mm in (("", mk), (" all-off", torch.zeros_like(mk))):
-            g1, t1 = payload_fetch.payload_fetch_cuda(t.clone(), i, mm)
+            g1, t1 = once("payload_fetch", payload_fetch.payload_fetch_cuda,
+                          t.clone(), i, mm)
             g2, t2 = R.payload_fetch(t.clone(), i, mm)
             err["payload_fetch"] = max(
                 err["payload_fetch"],
@@ -261,13 +291,14 @@ def check_kernels(dev) -> dict:
         for label, table in maglev_tables(gen, pipes, dev).items():
             err["maglev"] = max(err["maglev"], must_equal(
                 f"maglev {pipes}x{b} {label}",
-                maglev.maglev_select_cuda(*fields, table, bips),
+                once("maglev", maglev.maglev_select_cuda, *fields, table,
+                     bips),
                 R.maglev_select(*fields, table, bips)))
     torch.cuda.synchronize()
-    print("kernels vs plain: exact on every case "
-          "(B 256/264, W 160/352, R 1/20, duplicates, masked, out of range; "
-          "maglev (P, B) 2x256/2x320/1x264, shared and per-pipe tables of "
-          "251 and 65537, dead rows)")
+    print("kernels vs plain: exact on every case, one launch per call "
+          "(B 256/264, W 160/352, R 1/20, duplicates, masked, out of range, "
+          "every packet on one row; maglev (P, B) 2x256/2x320/1x264, shared "
+          "and per-pipe tables of 251 and 65537, dead rows)")
     return err
 
 
@@ -437,6 +468,36 @@ def device_busy(run, dev) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return dict(kernels=sum(v[0] for v in by_name.values()),
                 busy_s=sum(v[1] for v in by_name.values()) / 1e6, top=top)
+
+
+def one_kernel_per_call(dev) -> None:
+    """One traced call of ``payload_store`` (8 pipes x 256 packets) and of
+    ``paged_attention`` (engine and batched shapes), after a warm call,
+    must each run exactly one device kernel: no fill, no scratch zeroing,
+    no second pass."""
+    from repro_torch.kernels import paged_attention, payload_store
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    t, p, i, e = store_inputs(gen, 8, 256, 4096, 160, dev)
+    runs = {"payload_store": lambda d: payload_store.payload_store_cuda(
+        t, p, i, e)}
+    for name, args in (("engine", engine_paged(gen, dev)),
+                       ("batched", batched_paged(gen, dev))):
+        runs[f"paged_attention {name}"] = (
+            lambda d, args=args:
+            paged_attention.paged_decode_attention_cuda(*args))
+    # a short profile taken right after a long one records no device
+    # events (seen with torch 2.11), so a first profile is thrown away
+    device_busy(runs["payload_store"], dev)
+    for label, run in runs.items():
+        run(dev)
+        prof = device_busy(run, dev)
+        names = [n for n, _ in prof["top"]]
+        if prof["kernels"] != 1:
+            raise AssertionError(f"{label}: one call ran {prof['kernels']} "
+                                 f"device kernels ({names}), not 1")
+        print(f"profile {label}: one call, one device kernel of "
+              f"{prof['busy_s'] * 1e3:.6f} ms ({names[0][:70]})")
 
 
 def profile_steps(label: str, run, dev, steps: int) -> None:
@@ -669,7 +730,39 @@ def paged_cases(gen, dev) -> dict:
                 [13, -1, -1, -1, -1, -1], [14, 15, -1, -1, -1, -1],
                 [-1, -1, -1, -1, -1, -1]],
         lengths=[60, 40, 20, 32, 1, 0, 30])
+    # across the split-K boundaries (8 splits of 64 tokens): a split of -1
+    # pages only inside the length, a length ending mid-split, splits wholly
+    # past the length, lengths 1 and 0
+    none = [-1] * 32
+    cases["splits (5, 2, 8, 128) page 16 MP 32"] = paged_inputs(
+        gen, 5, 2, 8, 128, 16, 32, dev, npages=70,
+        tables=[list(range(0, 4)) + [-1] * 4 + list(range(4, 28)),
+                list(range(28, 34)) + none[6:], list(range(34, 66)),
+                [66] + none[1:], [67, 68] + none[2:]],
+        lengths=[250, 90, 40, 1, 0])
+    cases["long (1, 2, 8, 128) page 16 MP 128 length 17"] = paged_inputs(
+        gen, 1, 2, 8, 128, 16, 128, dev, npages=160,
+        tables=[list(range(20, 148))], lengths=[17])
+    cases["G=1 E=256 (1, 4, 1, 256) page 16 MP 24"] = paged_inputs(
+        gen, 1, 4, 1, 256, 16, 24, dev, npages=30,
+        tables=[list(range(2, 26))], lengths=[300])
+    cases["G=20 (2, 2, 20, 64) page 8 MP 40"] = paged_inputs(
+        gen, 2, 2, 20, 64, 8, 40, dev)
+    pt4 = torch.randperm(200, generator=gen)[:192].reshape(2, 96)
+    pt4[0, [5, 17, 18, 40]] = -1
+    pt4[1, 60:] = -1
+    cases["page 4 (2, 2, 8, 64) page 4 MP 96"] = paged_inputs(
+        gen, 2, 2, 8, 64, 4, 96, dev, npages=200, tables=pt4.tolist(),
+        lengths=[350, 201])
     return cases
+
+
+def engine_paged(gen, dev):
+    """The serving engine's shape: one request, 2 KV heads x 8 query heads,
+    E = 128, 16-token pages, MP = 12, 160 tokens over 10 pages."""
+    return paged_inputs(gen, 1, 2, 8, 128, 16, 12, dev, npages=256,
+                        tables=[list(range(3, 13)) + [-1, -1]],
+                        lengths=[160])
 
 
 def batched_paged(gen, dev):
@@ -705,14 +798,18 @@ def check_paged(dev) -> float:
     gen = torch.Generator().manual_seed(SEED + 3)
     err = 0.0
     for label, args in paged_cases(gen, dev).items():
-        got = paged_attention.paged_decode_attention_cuda(*args)
+        got = once("paged_attention",
+                   paged_attention.paged_decode_attention_cuda, *args)
         want = R.paged_decode_attention(*args)
         e = paged_close(label, got, want)
-        if label.startswith("edges"):
-            dead = got[5:].float().abs().max()
-            if float(dead) != 0.0:
-                raise AssertionError("paged_attention: a request with no "
-                                     f"live token gave {float(dead)}, not 0")
+        _, kp, _, pt, ln = args
+        page, mp = kp.shape[1], pt.shape[1]
+        pos = torch.arange(mp * page, device=dev)[None, :]
+        live = ((pos < ln[:, None].long())
+                & (pt >= 0).repeat_interleave(page, 1)).any(1)
+        if bool((got[~live] != 0).any()):
+            raise AssertionError(f"paged_attention {label}: a request with "
+                                 "no live token did not give zeros")
         err = max(err, e)
         print(f"paged_attention {label}: max abs err {e:.6f}")
     torch.cuda.synchronize()
@@ -736,12 +833,8 @@ def time_paged(dev) -> dict:
     from repro_torch.kernels import paged_attention
 
     gen = torch.Generator().manual_seed(SEED + 4)
-    shapes = {
-        "engine": paged_inputs(gen, 1, 2, 8, 128, 16, 12, dev, npages=256,
-                               tables=[list(range(3, 13)) + [-1, -1]],
-                               lengths=[160]),
-        "batched": batched_paged(gen, dev),
-    }
+    shapes = {"engine": engine_paged(gen, dev),
+              "batched": batched_paged(gen, dev)}
     rows = {}
     for name, (q, kp, vp, pt, ln) in shapes.items():
         b, kh, g, e = q.shape
@@ -997,6 +1090,7 @@ def main() -> int:
     stamp("phase 6 (serving)")
     # phase 7, after every timed run: a torch.profiler session slows the
     # launches that follow it in the same process
+    one_kernel_per_call(dev)
     for label, run, steps in traced + chain_traced + serve_traced:
         profile_steps(label, run, dev, steps)
     stamp("phase 7 (traces)")

@@ -36,13 +36,13 @@ _vp, _i64, _i32, _f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 SIGNATURES = {
     "pp_crc16_tag": (_vp, _vp, _vp, _i64, _vp),
     "pp_acl_match": (_vp, _vp, _vp, _i64, _i32, _vp),
-    "pp_payload_store": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i64, _i64,
-                         _vp),
+    "pp_payload_store": (_vp, _vp, _vp, _vp, _i64, _i64, _i64, _i64, _vp),
     "pp_payload_fetch": (_vp, _vp, _vp, _vp, _i64, _i64, _i64, _i64, _vp),
     "pp_maglev_select": (_vp, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _vp, _vp,
                          _i64, _i64, _vp),
-    "pp_paged_attention": (_vp, _vp, _vp, _vp, _vp, _vp, _i32, _i64, _i32,
-                           _i32, _i32, _i32, _i32, _i32, _f32, _vp),
+    "pp_paged_attention": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                           _i32, _i64, _i32, _i32, _i32, _i32, _i32, _i32,
+                           _i32, _i32, _i32, _f32, _vp),
 }
 
 

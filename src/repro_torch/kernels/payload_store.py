@@ -3,11 +3,13 @@
 Replaces ``repro/kernels/payload_store/kernel.py::payload_store_kernel``.
 The TPU wrapper regroups the bytes into int32 words padded to 128 lanes; a
 Hopper warp copies the uint8 rows directly, 16 bytes a thread, one warp
-per packet and one grid row per pipe.  Duplicate enabled rows resolve as
-the sequential TPU kernel does (last writer wins): a first pass takes the
-highest packet index per row into an M-int scratch with ``atomicMax``, and
-only that winner copies.  The wrapper allocates the scratch, -1 filled.
-Bound by bytes: one read and one write of each enabled row.
+per packet, 8 packets per block and one grid row per pipe, in one launch.
+Duplicate enabled rows resolve as the sequential TPU kernel does (last
+writer wins): a packet's warp copies only if no later enabled packet of
+its pipe names the same row, which it finds by scanning the later
+packets' rows, staged in shared memory (4 bytes a packet, so B is at most
+``MAX_PACKETS``).  Bound by bytes: one read and one write of each enabled
+row.
 
 ``payload_store_cuda`` launches the kernel and raises on CPU tensors;
 ``payload_store`` is the ``auto`` entry, which takes the plain version
@@ -24,15 +26,17 @@ from repro_torch.kernels.build import (check, launch_counter, library,
 
 COUNT = launch_counter("payload_store")
 
-__all__ = ["COUNT", "payload_store", "payload_store_cuda",
+MAX_PACKETS = 48 * 1024 // 4  # the rows a block stages, one int32 each
+
+__all__ = ["COUNT", "MAX_PACKETS", "payload_store", "payload_store_cuda",
            "payload_store_plain"]
 
 
 def payload_store_cuda(table, payload, idx, enb) -> torch.Tensor:
     """In place: table (..., M, W) uint8, payload (..., B, W) uint8,
     idx (..., B) integer, enb (..., B) bool, W a multiple of 16.
-    Returns ``table``."""
-    dev = require_cuda("payload_store", table, payload, idx, enb)
+    Returns ``table``.  Shapes are checked before devices, so a B over
+    ``MAX_PACKETS`` raises ``ValueError`` wherever the tensors lie."""
     *lead, m, w = table.shape
     b = idx.shape[-1]
     if table.dtype != torch.uint8 or payload.dtype != torch.uint8:
@@ -45,6 +49,12 @@ def payload_store_cuda(table, payload, idx, enb) -> torch.Tensor:
     if w % 16:
         raise ValueError(f"payload_store: row width {w} is not a multiple "
                          "of 16")
+    if b > MAX_PACKETS:
+        raise ValueError(f"payload_store: {b} packets per pipe overflow the "
+                         f"block's shared memory (at most {MAX_PACKETS})")
+    if m >= 1 << 31:
+        raise ValueError(f"payload_store: {m} table rows do not fit int32")
+    dev = require_cuda("payload_store", table, payload, idx, enb)
     payload = payload.contiguous()
     require_aligned("payload_store", table, payload)
     idx = idx.to(torch.int32).contiguous()
@@ -52,11 +62,9 @@ def payload_store_cuda(table, payload, idx, enb) -> torch.Tensor:
     pipes = table[..., 0, 0].numel()
     if pipes == 0 or b == 0:
         return table
-    winner = torch.full((pipes, m), -1, dtype=torch.int32, device=dev)
     rc = library().pp_payload_store(table.data_ptr(), payload.data_ptr(),
-                                    idx.data_ptr(), enb.data_ptr(),
-                                    winner.data_ptr(), pipes, b, m, w,
-                                    stream_handle(dev))
+                                    idx.data_ptr(), enb.data_ptr(), pipes, b,
+                                    m, w, stream_handle(dev))
     check("payload_store", rc)
     COUNT.launches += 1
     return table

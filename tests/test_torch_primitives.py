@@ -208,3 +208,93 @@ def test_backend_config_validates_and_overrides():
     assert cfg.mode("payload_store") == "ref"
     assert cfg.mode("crc16_tag") == "auto"
     assert cfg == BackendConfig("auto", (("payload_store", "ref"),))
+
+
+# --------------------------------------------------------------------------
+# the CUDA wrappers' checks and bindings, reachable without a card
+# --------------------------------------------------------------------------
+
+def test_payload_store_cuda_raises_on_cpu_tensors():
+    from repro_torch.kernels import payload_store as PS
+    table, payload, idx, enb = _cpu_args("payload_store")
+    with pytest.raises(RuntimeError):
+        PS.payload_store_cuda(table, payload, idx, enb)
+    assert launch_counts()["payload_store"] == 0
+
+
+def test_payload_store_cuda_raises_past_its_shared_memory():
+    from repro_torch.kernels import payload_store as PS
+    b = PS.MAX_PACKETS + 1
+    with pytest.raises(ValueError, match="shared memory"):
+        PS.payload_store_cuda(torch.zeros(4, 16, dtype=torch.uint8),
+                              torch.zeros(b, 16, dtype=torch.uint8),
+                              torch.zeros(b, dtype=torch.int32),
+                              torch.ones(b, dtype=torch.bool))
+    assert launch_counts()["payload_store"] == 0
+
+
+def _fake_library(monkeypatch, module, calls):
+    """Point ``module``'s wrapper at C functions built from
+    ``build.SIGNATURES`` that record their arguments: ctypes converts each
+    argument by the signature's type and raises on a count or type the
+    signature does not take.  The launch counter is restored afterwards."""
+    import ctypes
+    from repro_torch.kernels import build
+
+    class Lib:
+        pass
+
+    lib = Lib()
+    for name, argtypes in build.SIGNATURES.items():
+        proto = ctypes.CFUNCTYPE(ctypes.c_int, *argtypes)
+        fn = proto(lambda *a, name=name: calls.append((name, a)) or 0)
+        setattr(lib, name, fn)
+    lib._keep = [getattr(lib, n) for n in build.SIGNATURES]
+    monkeypatch.setattr(module, "library", lambda: lib)
+    monkeypatch.setattr(module, "require_cuda",
+                        lambda name, *t: torch.device("cpu"))
+    monkeypatch.setattr(module, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(module.COUNT, "launches", module.COUNT.launches)
+
+
+def test_payload_store_binding_matches_its_signature(monkeypatch):
+    from repro_torch.kernels import build
+    from repro_torch.kernels import payload_store as PS
+    calls = []
+    _fake_library(monkeypatch, PS, calls)
+    before = PS.COUNT.launches
+    table, payload, idx, enb = _cpu_args("payload_store")
+    PS.payload_store_cuda(table.view(1, 4, 16), payload.view(1, 8, 16),
+                          idx.view(1, 8), enb.view(1, 8))
+    assert [c[0] for c in calls] == ["pp_payload_store"]
+    assert len(calls[0][1]) == len(build.SIGNATURES["pp_payload_store"]) == 9
+    assert calls[0][1][4:8] == (1, 8, 4, 16)        # pipes, b, m, width
+    assert PS.COUNT.launches == before + 1          # one launch per call
+
+
+def test_paged_attention_binding_matches_its_signature(monkeypatch):
+    from repro_torch.kernels import build
+    from repro_torch.kernels import paged_attention as PA
+    calls = []
+    _fake_library(monkeypatch, PA, calls)
+    monkeypatch.setattr(PA, "_TICKETS", {})
+    before = PA.COUNT.launches
+    q = torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16)
+    pages = torch.zeros(16, 16, 2, 128, dtype=torch.bfloat16)
+    pt = torch.arange(12, dtype=torch.int32)[None]
+    ln = torch.tensor([160], dtype=torch.int32)
+    PA.paged_decode_attention_cuda(q, pages, pages, pt, ln)
+    assert [c[0] for c in calls] == ["pp_paged_attention"]
+    args = calls[0][1]
+    assert len(args) == len(build.SIGNATURES["pp_paged_attention"]) == 22
+    # dtype, b, K, G, E, pages, page, MP, split_tokens, splits, stages
+    assert args[9:20] == (0, 1, 2, 8, 128, 16, 16, 12, 192, 1, 2)
+    assert args[6:9] == (None, None, None)          # one split: no scratch
+    assert PA.COUNT.launches == before + 1
+    # 32 splits: scratch and tickets
+    calls.clear()
+    pt = torch.arange(128, dtype=torch.int32)[None] % 16
+    PA.paged_decode_attention_cuda(q, pages, pages, pt, ln)
+    assert calls[0][1][17:20] == (64, 32, 1)
+    assert all(a is not None for a in calls[0][1][6:9])
+    assert PA.COUNT.launches == before + 2
