@@ -9,13 +9,22 @@ Phases (any failure raises, so the script exits non-zero):
 2. Kernels against their plain PyTorch versions on the card, at the main
    paths' shapes plus edge cases (B = 256 and 264, M = 4096, W = 160 and
    352, R = 1 and 20, duplicate and masked rows, every packet of a pipe
-   naming one row; maglev at (P, B) = (2, 256), (2, 320) and (1, 264) with
-   a shared 251-entry table, a per-pipe table mixing the live and degraded
-   tables, a 65537-entry table and dead rows), compared exactly; each
-   wrapper call must add exactly one launch to its kernel's count.  Each kernel is timed (median of 30 launches,
-   CUDA events) beside its plain version, one PyTorch library call where
-   one computes the same function, and its bound: the larger of the bytes
-   it must move over 3.35 TB/s and its 32-bit operations over 67 T/s.
+   naming one row, two masked packets on one row; maglev at (P, B) =
+   (2, 256), (2, 320) and (1, 264) with a shared 251-entry table, a
+   per-pipe table mixing the live and degraded tables, a 65537-entry table
+   and dead rows), compared exactly.  Split's and Merge's control kernels
+   (``split_control``, ``merge_stage``) are held exactly against their
+   plain versions (registers, tables, decisions, CRCs, gathered rows) at
+   8 pipes x 256 packets, M 4096, W 160 and 352, on a table smaller than
+   the batch (M 64, 256 packets), without a pipe axis, with every packet
+   masked, and for Merge on returning packets with flipped CRCs,
+   out-of-range and negative tags with valid CRCs, explicit drops,
+   duplicate tags and a second match with pp_clk 0 after a free.  Each
+   wrapper call must add exactly one launch to its kernel's count.  Each
+   kernel is timed (median of 30 launches, CUDA events) beside its plain
+   version, one PyTorch library call where one computes the same
+   function, and its bound: the larger of the bytes it must move over
+   3.35 TB/s and its 32-bit operations over 67 T/s.
 3. The quickstart flow at full width (enterprise, 256 packets, default
    ParkConfig, Firewall -> NAT): Split, chain and Merge on the card,
    wire-identical to the chain run on whole packets.
@@ -26,7 +35,10 @@ Phases (any failure raises, so the script exits non-zero):
    on the card with the kernels and on the CPU with the plain versions
    from the same seeded inputs; counters, telemetry, NF counters,
    occupancy and merged wire bytes must be identical, the goodput gain
-   positive, and every kernel of the path launched during each card run.
+   positive, and every kernel of the path launched during each card run:
+   ``split_control`` once per Split call and ``merge_stage`` once per Merge
+   call, the standalone ``crc16`` and ``payload_fetch`` never (their code
+   runs inside those two).
 5. The §7 chain: the ``chain`` scenario family at full geometry (FW ->
    NAT -> Maglev LB; datacenter and enterprise traffic from a 1024-flow
    pool, 16384 packets, capacity 4096, max_exp 4, parking with and without
@@ -35,7 +47,8 @@ Phases (any failure raises, so the script exits non-zero):
    group of two points.  Per point the counters, telemetry, NF counters,
    occupancy and gain must be identical; ``verify_oracle`` must hold on
    every CPU point; the datacenter gain must be positive and higher with
-   recirculation; all five kernels must launch during the card run.
+   recirculation; all five kernels of the chain must launch during the
+   card run, with the same counts per Split and Merge call as phase 4.
 6. Parked-KV serving at full width: ``repro_torch.launch.serve`` on
    Qwen2.5-3B (full config, 36 layers, weights from a seeded generator on
    the card), 4 requests of prompt 128 and gen 32, max_batch 4, 16-token
@@ -54,8 +67,9 @@ Phases (any failure raises, so the script exits non-zero):
    each chain group and of a serving prefill, timed untraced and then
    repeated under ``torch.profiler``, give device kernels per step and the
    device's busy time against the untraced wall time.  One traced call of
-   ``payload_store`` and of ``paged_attention`` (engine and batched
-   shapes) must each run exactly one device kernel.
+   ``split_control``, ``merge_stage``, ``payload_store`` and of
+   ``paged_attention`` (engine and batched shapes) must each run exactly
+   one device kernel.
 8. A ``kernels`` JSON line, the card line, and the final ``ok`` line.
 
 Phase 2 also holds ``paged_attention`` against its plain version within
@@ -78,7 +92,9 @@ Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import statistics
 import sys
 import time
@@ -102,18 +118,27 @@ PROFILE_STEPS = 2  # traced steps of each dataplane trace: each traced
                    # step costs ~24k device kernels of profiler bookkeeping,
                    # and with 4 steps the traces took over half the run
 PROFILE_TOKENS = 8  # traced token steps of the serving prefill
+CRC16_TPU = "src/repro/kernels/crc16/kernel.py:40"
+FETCH_TPU = "src/repro/kernels/payload_fetch/kernel.py:49"
 REPLACES = {
-    "crc16": "src/repro/kernels/crc16/kernel.py:40",
+    "crc16": CRC16_TPU,
     "payload_store": "src/repro/kernels/payload_store/kernel.py:49",
-    "payload_fetch": "src/repro/kernels/payload_fetch/kernel.py:49",
+    "payload_fetch": FETCH_TPU,
     "acl_match": "src/repro/kernels/acl_match/kernel.py:28",
     "maglev": "src/repro/kernels/maglev/kernel.py:37",
     "paged_attention": "src/repro/kernels/paged_attention/kernel.py:68",
+    # the control kernels run crc16's (and payload_fetch's) device code
+    # on Split's and Merge's path
+    "split_control": CRC16_TPU,
+    "merge_stage": f"{CRC16_TPU}, {FETCH_TPU}",
 }
 # the kernels of the Split -> FW -> NAT -> Merge path (phase 4), and of the
-# §7 chain (phase 5)
-DATAPLANE_KERNELS = ("crc16", "payload_store", "payload_fetch", "acl_match")
+# §7 chain (phase 5); the standalone crc16 and payload_fetch kernels are off
+# those paths (their code runs inside split_control and merge_stage)
+DATAPLANE_KERNELS = ("split_control", "payload_store", "merge_stage",
+                     "acl_match")
 CHAIN_KERNELS = DATAPLANE_KERNELS + ("maglev",)
+INSIDE_CONTROL = ("crc16", "payload_fetch")
 # paged attention against its plain version: the reference's tolerances
 # (tests/test_kernels.py), and the bounds of the serving phase
 PAGED_ATOL, PAGED_RTOL = 0.02, 0.05
@@ -275,10 +300,17 @@ def check_kernels(dev) -> dict:
             err["payload_store"] = max(err["payload_store"], must_equal(
                 f"payload_store {pipes}x{b}x{w}{label}", got, want))
         t, i, mk = fetch_inputs(gen, pipes, b, 4096, w, dev)
-        for label, mm in (("", mk), (" all-off", torch.zeros_like(mk))):
+        # two masked packets on one row (a second Merge match with pp_clk
+        # 0 after a free): both receive the row, read before the clear
+        i2, mk2 = i.clone(), mk.clone()
+        i2[:, 1] = i2[:, 0]
+        mk2[:, :2] = True
+        for label, ix, mm in (("", i, mk),
+                              (" all-off", i, torch.zeros_like(mk)),
+                              (" one row twice", i2, mk2)):
             g1, t1 = once("payload_fetch", payload_fetch.payload_fetch_cuda,
-                          t.clone(), i, mm)
-            g2, t2 = R.payload_fetch(t.clone(), i, mm)
+                          t.clone(), ix, mm)
+            g2, t2 = R.payload_fetch(t.clone(), ix, mm)
             err["payload_fetch"] = max(
                 err["payload_fetch"],
                 must_equal(f"payload_fetch rows {pipes}x{b}x{w}{label}",
@@ -294,21 +326,168 @@ def check_kernels(dev) -> dict:
                 once("maglev", maglev.maglev_select_cuda, *fields, table,
                      bips),
                 R.maglev_select(*fields, table, bips)))
+    err["split_control"], err["merge_stage"] = check_control(gen, dev)
     torch.cuda.synchronize()
     print("kernels vs plain: exact on every case, one launch per call "
           "(B 256/264, W 160/352, R 1/20, duplicates, masked, out of range, "
-          "every packet on one row; maglev (P, B) 2x256/2x320/1x264, shared "
-          "and per-pipe tables of 251 and 65537, dead rows)")
+          "every packet on one row, one row fetched twice; maglev (P, B) "
+          "2x256/2x320/1x264, shared and per-pipe tables of 251 and 65537, "
+          "dead rows; split_control and merge_stage as listed above)")
     return err
+
+
+def leaves(out) -> list:
+    """The tensors of a primitive's output, in order."""
+    if torch.is_tensor(out):
+        return [out]
+    if isinstance(out, dict):
+        return [t for v in out.values() for t in leaves(v)]
+    return [t for v in out for t in leaves(v)]
+
+
+def control_state(gen, lead, m, max_exp, dev):
+    """Registers and metadata tables of ``lead`` pipes, about 1 - 1 /
+    (max_exp + 1) of the slots live, the clock 40 short of its wrap."""
+    exp = torch.randint(0, max_exp + 1, lead + (m,), generator=gen,
+                        dtype=torch.int32)
+    gens = torch.where(exp > 0, torch.randint(
+        1, 1 << 16, lead + (m,), generator=gen, dtype=torch.int32), 0)
+    lens = torch.where(exp > 0, torch.randint(
+        1, 161, lead + (m,), generator=gen, dtype=torch.int32), 0)
+    ti = torch.randint(0, m, lead, generator=gen, dtype=torch.int32)
+    clk = torch.full(lead, (1 << 16) - 40, dtype=torch.int32)
+    return [x.to(dev) for x in (ti, clk, exp, gens, lens)]
+
+
+def split_args(gen, cfg, lead, b, dev, alive_frac=0.9) -> list:
+    """``split_control``'s arguments: ParkConfig's scalars, a state from
+    ``control_state`` and packets of 0-1499 payload bytes."""
+    ti, clk, exp, gens, lens = control_state(gen, lead, cfg.capacity,
+                                             cfg.max_exp, dev)
+    alive = torch.rand(lead + (b,), generator=gen) < alive_frac
+    plen = torch.randint(0, 1500, lead + (b,), generator=gen,
+                         dtype=torch.int32)
+    return [cfg.capacity, cfg.max_exp, cfg.max_clk, cfg.min_park_len,
+            cfg.pass_bytes, ti, clk, exp, gens, lens, alive.to(dev),
+            plen.to(dev)]
+
+
+def merge_args(gen, lead, b, m, w, dev, corrupt=False) -> list:
+    """``merge_stage``'s arguments: a random payload table, metadata from
+    ``control_state`` and returning packets whose tags name live slots
+    (distinct slots when B <= M), 10 % with a stale generation, 20 %
+    explicit drops, header-less returns carrying zero tags as Split emits
+    them.  ``corrupt`` plants, in every pipe, flipped CRCs (packets 0-1),
+    an out-of-range and a negative tag with valid CRCs (2-3), a duplicate
+    tag (5 repeats 4) and a second match with pp_clk 0 after a free (7
+    names 6's live slot)."""
+    from repro_torch.backend import ref as R
+    from repro_torch.core.packet import OP_DROP
+
+    _, _, exp, gens, lens = control_state(gen, lead, m, 2, "cpu")
+    table = torch.randint(0, 256, lead + (m, w), generator=gen,
+                          dtype=torch.uint8)
+    shape = lead + (b,)
+    pipes = math.prod(lead)
+    if b <= m:
+        slots = torch.stack([torch.randperm(m, generator=gen)[:b]
+                             for _ in range(pipes)]).reshape(shape)
+    else:
+        slots = torch.randint(0, m, shape, generator=gen)
+    alive = torch.rand(shape, generator=gen) < 0.9
+    valid = alive & (torch.rand(shape, generator=gen) < 0.97)
+    enb = (torch.rand(shape, generator=gen) < 0.8).to(torch.int32)
+    op = torch.where(torch.rand(shape, generator=gen) < 0.2, OP_DROP,
+                     0).to(torch.int32)
+    stale = torch.rand(shape, generator=gen) < 0.1
+    if corrupt:
+        slots[..., 5] = slots[..., 4]
+        slots[..., 7] = slots[..., 6]
+        exp.scatter_(-1, slots[..., 6:7], 1)
+        gens.scatter_(-1, slots[..., 6:7], 77)
+        alive[..., :8] = True
+        valid[..., :8] = True
+        enb[..., :8] = 1
+        stale[..., :8] = False
+    ti = slots.to(torch.int32)
+    clk = torch.gather(gens, -1, slots)
+    clk = torch.where(stale, clk + 1, clk)
+    if corrupt:
+        ti[..., 2], ti[..., 3] = m + 3, -1
+        clk[..., 2] = clk[..., 3] = gens[..., m - 1]
+        clk[..., 7] = 0
+    ti = torch.where(enb == 1, ti, 0)
+    clk = torch.where(enb == 1, clk, 0)
+    crc = R.crc16_tag(ti, clk)
+    if corrupt:
+        crc[..., :2] ^= 1
+    return [x.to(dev) for x in (table, exp, gens, lens, alive, valid, enb,
+                                op, ti, clk, crc)]
+
+
+def check_control(gen, dev) -> tuple[int, int]:
+    """Phase 2 for Split's and Merge's control kernels: every output
+    against the plain version on the same inputs, exactly."""
+    from repro_torch.backend import ref as R
+    from repro_torch.core.park import ParkConfig
+    from repro_torch.kernels import merge_stage, split_control
+
+    def same_all(label, got, want) -> int:
+        got, want = leaves(got), leaves(want)
+        if len(got) != len(want):
+            raise AssertionError(f"{label}: {len(got)} outputs, plain "
+                                 f"version {len(want)}")
+        return max(must_equal(f"{label} output {k}", g, v)
+                   for k, (g, v) in enumerate(zip(got, want)))
+
+    e_split = e_merge = 0
+    base = ParkConfig(capacity=4096, max_exp=2)
+    for label, cfg, lead, b, frac in (
+            ("8x256 M4096 W160", base, (8,), 256, 0.9),
+            ("8x256 M4096 W352",
+             ParkConfig(capacity=4096, max_exp=2, recirculation=True),
+             (8,), 256, 0.9),
+            ("1x256 M64 (batch larger than the table)",
+             ParkConfig(capacity=64, max_exp=2), (1,), 256, 0.9),
+            ("no pipe axis, 264 packets", base, (), 264, 0.9),
+            ("8x256 all masked", base, (8,), 256, 0.0)):
+        args = split_args(gen, cfg, lead, b, dev, frac)
+        e_split = max(e_split, same_all(
+            f"split_control {label}",
+            once("split_control", split_control.split_control_cuda, *args),
+            R.split_control(*args)))
+    for label, lead, b, m, w, corrupt, masked in (
+            ("8x256 M4096 W160", (8,), 256, 4096, 160, False, False),
+            ("8x256 M4096 W352", (8,), 256, 4096, 352, False, False),
+            ("8x256 M4096 W160 corrupted", (8,), 256, 4096, 160, True, False),
+            ("8x256 M4096 W352 corrupted", (8,), 256, 4096, 352, True, False),
+            ("1x256 M64 (batch larger than the table)", (1,), 256, 64, 160,
+             True, False),
+            ("no pipe axis, 264 packets", (), 264, 4096, 160, True, False),
+            ("8x256 all masked", (8,), 256, 4096, 160, False, True)):
+        table, *rest = merge_args(gen, lead, b, m, w, dev, corrupt)
+        if masked:
+            rest[5] = torch.zeros_like(rest[5])  # pp_enb
+        got = once("merge_stage", merge_stage.merge_stage_cuda,
+                   table.clone(), *rest)
+        want = R.merge_stage(table.clone(), *rest)
+        e_merge = max(e_merge, same_all(f"merge_stage {label}", got, want))
+        if corrupt and not bool(want[1]["matched"][..., 7].all()):
+            raise AssertionError(f"merge_stage {label}: the second match "
+                                 "after a free did not match")
+    return e_split, e_merge
 
 
 def time_kernels(dev) -> dict:
     """Times at the 8-pipe main path shapes: 8 pipes x 256 packets,
-    M = 4096, W = 160, R = 20; maglev at the chain path's 2 pipes x 256
-    packets with the shared 251-entry table and 8 backends."""
+    M = 4096, W = 160, R = 20 (Split's and Merge's control kernels on
+    ``split_args`` / ``merge_args`` inputs, max_exp 2); maglev at the chain
+    path's 2 pipes x 256 packets with the shared 251-entry table and 8
+    backends."""
     from repro_torch.backend import ref as R
+    from repro_torch.core.park import ParkConfig
     from repro_torch.kernels import acl_match, crc16, maglev, payload_fetch
-    from repro_torch.kernels import payload_store
+    from repro_torch.kernels import merge_stage, payload_store, split_control
     from repro_torch.nf.maglev import MaglevLB, build_table
 
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -355,6 +534,30 @@ def time_kernels(dev) -> dict:
         plain_ms=device_ms(lambda: R.payload_fetch(t, i, mk)),
         library_ms=None,
         bound_bytes=matched * w * 2 + n * w + n * 5, bound_ops=0)
+
+    cfg = ParkConfig(capacity=m, max_exp=2)
+    args = split_args(gen, cfg, (pipes,), b, dev)
+    rows["split_control"] = dict(
+        ms=device_ms(lambda: split_control.split_control_cuda(*args)),
+        plain_ms=device_ms(lambda: R.split_control(*args)),
+        library_ms=None,
+        # the tables and registers read and written once (they come out
+        # as new tensors), 5 bytes in and 20 out per packet
+        bound_bytes=pipes * (24 * m + 16) + n * 25,
+        bound_ops=n * CRC16_OPS)
+
+    margs = merge_args(gen, (pipes,), b, m, w, dev)
+    _, d, _, _ = R.merge_stage(margs[0].clone(), *margs[1:])
+    matched = int(d["matched"].sum())
+    rows["merge_stage"] = dict(
+        ms=device_ms(lambda: merge_stage.merge_stage_cuda(*margs)),
+        plain_ms=device_ms(lambda: R.merge_stage(*margs)),
+        library_ms=None,
+        # the tables read and written once, 22 header bytes in and 9 of
+        # decisions out per packet, the (B, W) rows out, each matched row
+        # read once and cleared once (every tag here is in range)
+        bound_bytes=pipes * 24 * m + n * 31 + n * w + matched * w * 2,
+        bound_ops=n * CRC16_OPS)
 
     lb = MaglevLB()
     fields = maglev_inputs(gen, 2, 256, dev, dead=())
@@ -471,16 +674,25 @@ def device_busy(run, dev) -> dict:
 
 
 def one_kernel_per_call(dev) -> None:
-    """One traced call of ``payload_store`` (8 pipes x 256 packets) and of
+    """One traced call of ``payload_store``, ``split_control`` and
+    ``merge_stage`` (8 pipes x 256 packets, M 4096, W 160) and of
     ``paged_attention`` (engine and batched shapes), after a warm call,
     must each run exactly one device kernel: no fill, no scratch zeroing,
-    no second pass."""
-    from repro_torch.kernels import paged_attention, payload_store
+    no copy, no second pass."""
+    from repro_torch.core.park import ParkConfig
+    from repro_torch.kernels import (merge_stage, paged_attention,
+                                     payload_store, split_control)
 
     gen = torch.Generator().manual_seed(SEED + 5)
     t, p, i, e = store_inputs(gen, 8, 256, 4096, 160, dev)
+    sargs = split_args(gen, ParkConfig(capacity=4096, max_exp=2), (8,), 256,
+                       dev)
+    margs = merge_args(gen, (8,), 256, 4096, 160, dev, corrupt=True)
     runs = {"payload_store": lambda d: payload_store.payload_store_cuda(
-        t, p, i, e)}
+                t, p, i, e),
+            "split_control": lambda d: split_control.split_control_cuda(
+                *sargs),
+            "merge_stage": lambda d: merge_stage.merge_stage_cuda(*margs)}
     for name, args in (("engine", engine_paged(gen, dev)),
                        ("batched", batched_paged(gen, dev))):
         runs[f"paged_attention {name}"] = (
@@ -519,6 +731,48 @@ def profile_steps(label: str, run, dev, steps: int) -> None:
           f"{1 - prof['busy_s'] / wall:.6f}")
     for name, (cnt, us) in prof["top"]:
         print(f"  {us / 1e3:12.3f} ms {cnt:8d}x {name[:90]}")
+
+
+@contextlib.contextmanager
+def park_calls():
+    """Counts the Split and Merge calls made while the block runs: the
+    engine's own and the retry Splits of ``recirc_fn``."""
+    from repro_torch.core import park
+    from repro_torch.switchsim import engine as E
+
+    calls = {"split_fn": 0, "merge_fn": 0}
+    saved = [(mod, name, getattr(mod, name))
+             for mod in (park, E) for name in calls]
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return call
+
+    for mod, name, fn in saved:
+        setattr(mod, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_launches(label, counts, calls, kernels) -> None:
+    """Every kernel of the path launched; ``split_control`` once per Split
+    call and ``merge_stage`` once per Merge call; the standalone ``crc16``
+    and ``payload_fetch`` never (their code runs inside those two)."""
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched on the card: "
+                             f"{missing}")
+    want = {"split_control": calls["split_fn"],
+            "merge_stage": calls["merge_fn"],
+            **dict.fromkeys(INSIDE_CONTROL, 0)}
+    wrong = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if wrong:
+        raise AssertionError(f"{label}: launches (counted, wanted) {wrong}")
 
 
 def engine(dev, packets: int = 16384):
@@ -562,10 +816,11 @@ def engine(dev, packets: int = 16384):
     for label, run, per_pipe in runs:
         sync(dev)
         reset_launch_counts()
-        t0 = time.perf_counter()
-        gpu = run(dev)
-        sync(dev)
-        wall = time.perf_counter() - t0
+        with park_calls() as calls:
+            t0 = time.perf_counter()
+            gpu = run(dev)
+            sync(dev)
+            wall = time.perf_counter() - t0
         counts[label] = launch_counts()
         t0 = time.perf_counter()
         cpu = run("cpu")
@@ -574,15 +829,12 @@ def engine(dev, packets: int = 16384):
         gain = goodput_gain(gpu)["goodput_gain"]
         if not gain > 0:
             raise AssertionError(f"{label}: goodput gain {gain} <= 0")
-        missing = [k for k in DATAPLANE_KERNELS if counts[label][k] == 0]
-        if missing:
-            raise AssertionError(f"{label}: kernels never launched on the "
-                                 f"card: {missing}")
+        check_launches(label, counts[label], calls, DATAPLANE_KERNELS)
         pps = gpu.telemetry.wire_pkts / wall
         print(f"engine {label}: card {wall:.3f} s ({pps:.1f} offered pkt/s),"
               f" CPU {cpu_wall:.3f} s, goodput_gain {gain:.6f}, counters "
-              f"{gpu.counters}, launches {counts[label]}; identical to the "
-              "CPU run")
+              f"{gpu.counters}, launches {counts[label]} for {calls}; "
+              "identical to the CPU run")
     head = map_fields(lambda n, a: a[:, :PROFILE_STEPS], traces)
     traced = [("pipes8", lambda d: run_pipes(cfg, chain, head, window=window,
                                              device=d),
@@ -634,7 +886,8 @@ def chain_phase(dev):
 
     sync(dev)
     reset_launch_counts()
-    gpu, gpu_walls = run_groups(dev)
+    with park_calls() as calls:
+        gpu, gpu_walls = run_groups(dev)
     counts = launch_counts()
     cpu, cpu_walls = run_groups("cpu")
     for name in gpu:
@@ -656,11 +909,8 @@ def chain_phase(dev):
         offered = sum(gpu[m.name].telemetry.wire_pkts for m in members)
         print(f"chain group {[m.name for m in members]}: card {gw:.3f} s "
               f"({offered / gw:.1f} offered pkt/s), CPU {cw:.3f} s")
-    print(f"chain launches on the card: {counts}")
-    missing = [k for k in CHAIN_KERNELS if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"chain: kernels never launched on the card: "
-                             f"{missing}")
+    print(f"chain launches on the card: {counts} for {calls}")
+    check_launches("chain", counts, calls, CHAIN_KERNELS)
     # the first steps of each group's run_pipes call, to be traced
     traced = []
     for members in groups:
@@ -1096,10 +1346,12 @@ def main() -> int:
     stamp("phase 7 (traces)")
 
     # ``launches`` is the count on the kernel's own main path: pipes8 for
-    # the Split -> FW -> NAT -> Merge kernels, the chain for maglev, the
-    # full-width serving run for paged_attention (whose times are those of
-    # the engine's shape; ``batched`` holds the batched shape's)
-    main_path = dict.fromkeys(DATAPLANE_KERNELS, "pipes8")
+    # the Split -> FW -> NAT -> Merge kernels (0 for crc16 and
+    # payload_fetch, whose code runs inside split_control and merge_stage
+    # there), the chain for maglev, the full-width serving run for
+    # paged_attention (whose times are those of the engine's shape;
+    # ``batched`` holds the batched shape's)
+    main_path = dict.fromkeys(DATAPLANE_KERNELS + INSIDE_CONTROL, "pipes8")
     main_path.update(maglev="chain", paged_attention="serve")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []

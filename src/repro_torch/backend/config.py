@@ -2,7 +2,8 @@
 
 Port of ``repro.backend.config``.  A ``BackendConfig`` names which
 implementation of each hot-path primitive the dataplane (and, for
-``paged_attention``, the serving engine) runs:
+``paged_attention``, the serving engine) runs; ``split_control`` and
+``merge_stage`` are Split's and Merge's whole control passes:
 
   * ``"ref"``  — the plain PyTorch version (``repro_torch.backend.ref``),
                  on whatever device its tensors lie;
@@ -20,7 +21,8 @@ import dataclasses
 
 # The registry asserts it implements exactly this set, in this order.
 PRIMITIVES = ("crc16_tag", "acl_match", "maglev_select", "payload_store",
-              "payload_fetch", "paged_attention")
+              "payload_fetch", "paged_attention", "split_control",
+              "merge_stage")
 
 BACKENDS = ("ref", "cuda", "auto")
 

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.packet import OP_DROP
+
 # ---------------------------------------------------------------------------
 # crc16_tag — PayloadPark header tag CRC (paper §3.2, Fig. 2)
 # ---------------------------------------------------------------------------
@@ -144,6 +146,141 @@ def payload_fetch(table, idx, mask):
                           reduce="amax")
     table.masked_fill_(clear.bool()[..., None], 0)
     return gathered, table
+
+
+# ---------------------------------------------------------------------------
+# split_control / merge_stage — the Split and Merge control passes (paper
+# Algorithms 1 and 2), as the reference's ``lax.scan`` runs them
+# ---------------------------------------------------------------------------
+
+def _meta_row(meta: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """meta (..., M, 3) at slot (...,) int64 -> (..., 3)."""
+    i = slot[..., None, None].expand(slot.shape + (1, 3))
+    return torch.gather(meta, -2, i).squeeze(-2)
+
+
+def _set_meta_row(meta: torch.Tensor, slot: torch.Tensor,
+                  row: torch.Tensor) -> None:
+    i = slot[..., None, None].expand(slot.shape + (1, 3))
+    meta.scatter_(-2, i, row[..., None, :])
+
+
+def split_control(m, max_exp, max_clk, min_park_len, pass_bytes, tbl_idx,
+                  clk, meta_exp, meta_clk, meta_len, alive, payload_len):
+    """Split's sequential tagger + metadata-table pass and the tag CRC.
+
+    ``m`` is the table's capacity and the other scalars are ParkConfig's;
+    registers (...,), metadata (..., M) int32, packets (..., B).  Returns
+    ``((tbl_idx, clk, meta_exp, meta_clk, meta_len), d)``: the new
+    registers and (new) metadata tensors, and the per-packet decisions
+    ``enb, ti, clk, evicted, skip_occupied, skip_small, park_len, crc``.
+
+    The metadata (expiry, generation, length) is packed into one
+    (..., M, 3) tensor, so each packet position costs one gather and one
+    scatter for every pipe at once."""
+    plen = payload_len
+    eligible = alive & (plen >= min_park_len)
+
+    # -- stage 1: packet tagger (Alg. 1 lines 4-7).  Each eligible packet
+    # advances TI and CLK by one, so the sequence is a running count; the
+    # generation clock wraps to 1, skipping 0 (0 marks a free slot).
+    k = torch.cumsum(eligible.to(torch.int64), dim=-1)
+    ti0 = tbl_idx.to(torch.int64)[..., None]
+    clk0 = clk.to(torch.int64)[..., None]
+    ti_n = torch.remainder(ti0 + k, m)
+    clk_n = torch.where(
+        k > 0, torch.remainder(clk0 - 1 + k, max_clk - 1) + 1, clk0)
+    park_len = torch.clamp(plen, max=pass_bytes)
+
+    # -- stage 2: metadata probe (Alg. 1 lines 10-25), packet by packet ----
+    meta = torch.stack([meta_exp, meta_clk, meta_len], dim=-1)
+    claims, evicts, avails = [], [], []
+    for i in range(alive.shape[-1]):
+        slot, e = ti_n[..., i], eligible[..., i]
+        row = _meta_row(meta, slot)
+        exp_pre, clk_cur, len_cur = row.unbind(-1)
+        available = exp_pre <= 1         # expiry reaches 0 (lines 11-14)
+        evicted = e & (exp_pre == 1)
+        claim = e & available
+        new_exp = torch.where(
+            e, torch.where(available, max_exp, exp_pre - 1), exp_pre)
+        new_clk = torch.where(claim, clk_n[..., i],
+                              torch.where(evicted, 0, clk_cur))
+        new_len = torch.where(claim, park_len[..., i], len_cur)
+        _set_meta_row(meta, slot, torch.stack(
+            [new_exp, new_clk, new_len], dim=-1).to(torch.int32))
+        claims.append(claim)
+        evicts.append(evicted)
+        avails.append(available)
+
+    def stacked(xs):
+        if xs:
+            return torch.stack(xs, dim=-1)
+        return torch.zeros_like(alive)
+
+    enb, evicted, available = stacked(claims), stacked(evicts), stacked(avails)
+    ti32, clk32 = ti_n.to(torch.int32), clk_n.to(torch.int32)
+    d = dict(
+        enb=enb, ti=ti32, clk=clk32,
+        evicted=evicted,
+        skip_occupied=eligible & ~available,
+        skip_small=alive & (plen < min_park_len),
+        park_len=torch.where(enb, park_len, 0).to(torch.int32),
+        crc=crc16_tag(ti32, clk32),
+    )
+    regs = (ti_n[..., -1].to(torch.int32) if alive.shape[-1] else tbl_idx,
+            clk_n[..., -1].to(torch.int32) if alive.shape[-1] else clk)
+    return regs + tuple(meta.unbind(-1)), d
+
+
+def merge_stage(table, meta_exp, meta_clk, meta_len, alive, pp_valid,
+                pp_enb, pp_op, pp_ti, pp_clk, pp_crc):
+    """Merge's tag check, sequential metadata validation/free pass (Alg. 2
+    lines 11-13) and the gather-and-clear of the matched rows.
+
+    table (..., M, W) uint8, updated in place; metadata (..., M) int32;
+    header fields (..., B).  Returns ``((meta_exp, meta_clk, meta_len), d,
+    parked (..., B, W), table)`` with the per-packet decisions ``matched,
+    premature, crc_fail, disabled, is_drop_op, park_len`` in ``d``.  The
+    tag CRC check is per-packet math, so it runs batched before the loop."""
+    m = meta_exp.shape[-1]
+    crc_ok = crc16_tag(pp_ti, pp_clk) == pp_crc
+    is_pp = alive & pp_valid & (pp_enb == 1)
+    checked = is_pp & crc_ok
+    slot = norm_index(pp_ti.to(torch.int64), m)
+    in_range = (slot >= 0) & (slot < m)
+    slot = torch.clamp(slot, 0, m - 1)
+
+    meta = torch.stack([meta_exp, meta_clk, meta_len], dim=-1)
+    matches, gens, lens = [], [], []
+    for i in range(alive.shape[-1]):
+        s = slot[..., i]
+        row = _meta_row(meta, s)
+        gen_ok = row[..., 1] == pp_clk[..., i]
+        matched = checked[..., i] & gen_ok               # Alg. 2 line 11
+        # free the slot (Alg. 2 line 13); an out-of-range tag frees nothing
+        _set_meta_row(meta, s, torch.where(
+            (matched & in_range[..., i])[..., None], 0, row))
+        matches.append(matched)
+        gens.append(gen_ok)
+        lens.append(torch.where(matched, row[..., 2], 0))
+
+    def stacked(xs, like):
+        return torch.stack(xs, dim=-1) if xs else torch.zeros_like(like)
+
+    matched = stacked(matches, alive)
+    gen_ok = stacked(gens, alive)
+    d = dict(
+        matched=matched,
+        premature=checked & ~gen_ok,
+        crc_fail=is_pp & ~crc_ok,
+        disabled=alive & pp_valid & (pp_enb == 0),
+        is_drop_op=matched & (pp_op == OP_DROP),
+        park_len=stacked(lens, pp_ti).to(torch.int32),
+    )
+    # -- stage 3..N: gather payload blocks, then clear the rows ------------
+    parked, table = payload_fetch(table, pp_ti, matched)
+    return tuple(meta.unbind(-1)), d, parked, table
 
 
 # ---------------------------------------------------------------------------

@@ -57,6 +57,12 @@ _REGISTRY: dict[str, Primitive] = {
         Primitive("paged_attention", R.paged_decode_attention,
                   _kernel("paged_attention", "paged_decode_attention_cuda"),
                   _kernel("paged_attention", "paged_decode_attention")),
+        Primitive("split_control", R.split_control,
+                  _kernel("split_control", "split_control_cuda"),
+                  _kernel("split_control", "split_control")),
+        Primitive("merge_stage", R.merge_stage,
+                  _kernel("merge_stage", "merge_stage_cuda"),
+                  _kernel("merge_stage", "merge_stage")),
     )
 }
 

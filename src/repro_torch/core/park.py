@@ -2,18 +2,15 @@
 Recirculate (port of ``repro.core.park``, paper Algorithms 1 and 2).
 
 P4 gives atomic, per-packet sequential register semantics (§5).  The
-reference reproduces them with a ``lax.scan`` over packets; the port runs
-the same control passes as plain Python loops over packet positions in
-arrival order, with tensor ops only (no host sync inside a loop).  Every
-tensor may carry leading pipe dimensions, so one loop iteration advances
-all pipes at once.  The bulk payload movement and the tag CRCs route
-through the backend registry (``repro_torch.backend``): CUDA kernels on the
-card, plain PyTorch on the CPU.
-
-The per-slot metadata (expiry, generation clock, parked length) is packed
-into one (..., M, 3) tensor inside a control pass, so each packet costs one
-gather and one scatter.  Index rules follow the reference: a negative tag
-index counts from the end, out-of-range reads clamp and writes drop.
+reference reproduces them with a ``lax.scan`` over packets.  The port runs
+each control pass as one primitive of the backend registry
+(``repro_torch.backend``): ``split_control`` (tagger, metadata probe, tag
+CRCs) and ``merge_stage`` (tag check, validation/free pass, gather and
+clear of the parked rows) are one CUDA kernel launch each on the card and
+plain Python loops over packet positions on the CPU; ``payload_store``
+moves Split's rows.  Every tensor may carry leading pipe dimensions, and
+all pipes advance together.  Index rules follow the reference: a negative
+tag index counts from the end, out-of-range reads clamp and writes drop.
 
 State is consumed: ``split_fn``/``merge_fn``/``recirc_fn`` update the
 payload table of the state they are given in place (the port's counterpart
@@ -27,11 +24,9 @@ from typing import Any
 import torch
 
 from repro_torch.backend.config import as_config
-from repro_torch.backend.ref import norm_index
 from repro_torch.backend.registry import dispatch
 from repro_torch.core import counters as C
-from repro_torch.core.header import crc16_tag, tag_valid
-from repro_torch.core.packet import OP_DROP, FIELDS, PacketBatch
+from repro_torch.core.packet import FIELDS, PacketBatch
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 BLOCK_BYTES = 16  # single MAT-cell width (paper Fig. 4)
@@ -115,23 +110,6 @@ def occupancy(state: ParkState) -> torch.Tensor:
     return (state.meta_exp > 0).sum(dim=-1).to(torch.int32)
 
 
-def _pack_meta(state: ParkState) -> torch.Tensor:
-    return torch.stack([state.meta_exp, state.meta_clk, state.meta_len],
-                       dim=-1)
-
-
-def _meta_row(meta: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
-    """meta (..., M, 3) at slot (...,) int64 -> (..., 3)."""
-    i = slot[..., None, None].expand(slot.shape + (1, 3))
-    return torch.gather(meta, -2, i).squeeze(-2)
-
-
-def _set_meta_row(meta: torch.Tensor, slot: torch.Tensor,
-                  row: torch.Tensor) -> None:
-    i = slot[..., None, None].expand(slot.shape + (1, 3))
-    meta.scatter_(-2, i, row[..., None, :])
-
-
 def _gather_last(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """a (..., M) at idx (..., K) -> (..., K)."""
     return torch.gather(a, -1, idx.to(torch.int64))
@@ -152,77 +130,23 @@ def _payload_shift(payload, payload_len, shift, pmax):
 # Split (paper Algorithm 1)
 # --------------------------------------------------------------------------
 
-def _split_control(cfg: ParkConfig, state: ParkState, pkts: PacketBatch):
-    """Sequential tagger + metadata-table pass.  Returns the new registers
-    and metadata and the per-packet decisions."""
-    m = cfg.capacity
-    alive, plen = pkts.alive, pkts.payload_len
-    eligible = alive & (plen >= cfg.min_park_len)
-
-    # -- stage 1: packet tagger (Alg. 1 lines 4-7).  Each eligible packet
-    # advances TI and CLK by one, so the sequence is a running count; the
-    # generation clock wraps to 1, skipping 0 (0 marks a free slot).
-    k = torch.cumsum(eligible.to(torch.int64), dim=-1)
-    ti0 = state.tbl_idx.to(torch.int64)[..., None]
-    clk0 = state.clk.to(torch.int64)[..., None]
-    ti_n = torch.remainder(ti0 + k, m)
-    clk_n = torch.where(
-        k > 0, torch.remainder(clk0 - 1 + k, cfg.max_clk - 1) + 1, clk0)
-    park_len = torch.clamp(plen, max=cfg.pass_bytes)
-
-    # -- stage 2: metadata probe (Alg. 1 lines 10-25), packet by packet ----
-    meta = _pack_meta(state)
-    claims, evicts, avails = [], [], []
-    for i in range(pkts.batch_size):
-        slot, e = ti_n[..., i], eligible[..., i]
-        row = _meta_row(meta, slot)
-        exp_pre, clk_cur, len_cur = row.unbind(-1)
-        available = exp_pre <= 1         # expiry reaches 0 (lines 11-14)
-        evicted = e & (exp_pre == 1)
-        claim = e & available
-        new_exp = torch.where(
-            e, torch.where(available, cfg.max_exp, exp_pre - 1), exp_pre)
-        new_clk = torch.where(claim, clk_n[..., i],
-                              torch.where(evicted, 0, clk_cur))
-        new_len = torch.where(claim, park_len[..., i], len_cur)
-        _set_meta_row(meta, slot, torch.stack(
-            [new_exp, new_clk, new_len], dim=-1).to(torch.int32))
-        claims.append(claim)
-        evicts.append(evicted)
-        avails.append(available)
-
-    def stacked(xs):
-        if xs:
-            return torch.stack(xs, dim=-1)
-        return torch.zeros_like(alive)
-
-    enb, evicted, available = stacked(claims), stacked(evicts), stacked(avails)
-    d = dict(
-        enb=enb, ti=ti_n.to(torch.int32), clk=clk_n.to(torch.int32),
-        evicted=evicted,
-        skip_occupied=eligible & ~available,
-        skip_small=alive & (plen < cfg.min_park_len),
-        park_len=torch.where(enb, park_len, 0).to(torch.int32),
-    )
-    regs = (ti_n[..., -1].to(torch.int32) if pkts.batch_size
-            else state.tbl_idx,
-            clk_n[..., -1].to(torch.int32) if pkts.batch_size
-            else state.clk)
-    meta_exp, meta_clk, meta_len = meta.unbind(-1)
-    return regs + (meta_exp, meta_clk, meta_len), d
-
-
 def split_fn(cfg: ParkConfig, state: ParkState, pkts: PacketBatch,
              backend=None) -> tuple[ParkState, PacketBatch]:
     """Split: park payload prefixes, emit header-only packets.
 
     Returns (new_state, packets as sent to the NF server).  Every alive
     packet leaves with a PayloadPark header (ENB=1 if parked, else 0).
-    ``backend`` selects the payload_store / crc16_tag implementations.
+    ``backend`` selects the split_control / payload_store
+    implementations.
     """
     backend = as_config(backend)
-    (ti, clk, meta_exp, meta_clk, meta_len), d = _split_control(
-        cfg, state, pkts)
+    # the tagger, the metadata probe (Alg. 1 lines 4-25) and the tag CRCs:
+    # one call
+    (ti, clk, meta_exp, meta_clk, meta_len), d = dispatch(
+        "split_control", backend)(
+        cfg.capacity, cfg.max_exp, cfg.max_clk, cfg.min_park_len,
+        cfg.pass_bytes, state.tbl_idx, state.clk, state.meta_exp,
+        state.meta_clk, state.meta_len, pkts.alive, pkts.payload_len)
 
     # -- stage 3..N: stripe payload blocks into the payload table.  The
     # full row is written (zeros above park_len), so a recirculation pass
@@ -250,7 +174,6 @@ def split_fn(cfg: ParkConfig, state: ParkState, pkts: PacketBatch,
                                         d["park_len"], cfg.pmax)
     alive = pkts.alive
     enb = d["enb"]
-    crc = crc16_tag(d["ti"], d["clk"], backend=backend)
     zero = torch.zeros_like(pkts.pp_op)
     out = pkts.replace(
         payload=torch.where(alive[..., None], remainder, pkts.payload),
@@ -260,7 +183,7 @@ def split_fn(cfg: ParkConfig, state: ParkState, pkts: PacketBatch,
         pp_op=zero,
         pp_ti=torch.where(enb, d["ti"], zero),
         pp_clk=torch.where(enb, d["clk"], zero),
-        pp_crc=torch.where(enb, crc, zero),
+        pp_crc=torch.where(enb, d["crc"], zero),
     )
     return new_state, out
 
@@ -352,49 +275,6 @@ def recirc_fn(cfg: ParkConfig, state: ParkState, pkts: PacketBatch,
 # Merge + Explicit Drop (paper Algorithm 2, §6.2.4)
 # --------------------------------------------------------------------------
 
-def _merge_control(cfg: ParkConfig, state: ParkState, pkts: PacketBatch,
-                   backend=None):
-    """Sequential metadata validation/free pass (Alg. 2 stages 1-2).  The
-    tag CRC check is per-packet math, so it runs batched before the loop."""
-    m = cfg.capacity
-    crc_ok = tag_valid(pkts.pp_ti, pkts.pp_clk, pkts.pp_crc, backend=backend)
-    is_pp = pkts.alive & pkts.pp_valid & (pkts.pp_enb == 1)
-    checked = is_pp & crc_ok
-    slot = norm_index(pkts.pp_ti.to(torch.int64), m)
-    in_range = (slot >= 0) & (slot < m)
-    slot = torch.clamp(slot, 0, m - 1)
-
-    meta = _pack_meta(state)
-    matches, gens, lens = [], [], []
-    for i in range(pkts.batch_size):
-        s = slot[..., i]
-        row = _meta_row(meta, s)
-        gen_ok = row[..., 1] == pkts.pp_clk[..., i]
-        matched = checked[..., i] & gen_ok               # Alg. 2 line 11
-        # free the slot (Alg. 2 line 13); an out-of-range tag frees nothing
-        _set_meta_row(meta, s, torch.where(
-            (matched & in_range[..., i])[..., None], 0, row))
-        matches.append(matched)
-        gens.append(gen_ok)
-        lens.append(torch.where(matched, row[..., 2], 0))
-
-    def stacked(xs, like):
-        return torch.stack(xs, dim=-1) if xs else torch.zeros_like(like)
-
-    matched = stacked(matches, pkts.alive)
-    gen_ok = stacked(gens, pkts.alive)
-    d = dict(
-        matched=matched,
-        premature=checked & ~gen_ok,
-        crc_fail=is_pp & ~crc_ok,
-        disabled=pkts.alive & pkts.pp_valid & (pkts.pp_enb == 0),
-        is_drop_op=matched & (pkts.pp_op == OP_DROP),
-        park_len=stacked(lens, pkts.payload_len).to(torch.int32),
-    )
-    meta_exp, meta_clk, meta_len = meta.unbind(-1)
-    return (meta_exp, meta_clk, meta_len), d
-
-
 def merge_fn(cfg: ParkConfig, state: ParkState, pkts: PacketBatch,
              backend=None) -> tuple[ParkState, PacketBatch]:
     """Merge (and Explicit Drop) for packets returning from the NF server.
@@ -405,13 +285,14 @@ def merge_fn(cfg: ParkConfig, state: ParkState, pkts: PacketBatch,
       * CRC or generation mismatch: packet dropped, counted.
     """
     backend = as_config(backend)
-    (meta_exp, meta_clk, meta_len), d = _merge_control(cfg, state, pkts,
-                                                       backend=backend)
-
-    # -- stage 3..N: gather payload blocks, then clear the rows ------------
+    # the tag check, the validation/free pass (Alg. 2 stages 1-2) and the
+    # gather-and-clear of the matched rows (stages 3..N): one call
+    (meta_exp, meta_clk, meta_len), d, parked, ptable = dispatch(
+        "merge_stage", backend)(
+        state.ptable, state.meta_exp, state.meta_clk, state.meta_len,
+        pkts.alive, pkts.pp_valid, pkts.pp_enb, pkts.pp_op, pkts.pp_ti,
+        pkts.pp_clk, pkts.pp_crc)
     fetch = d["matched"] & ~d["is_drop_op"]
-    parked, ptable = dispatch("payload_fetch", backend)(
-        state.ptable, pkts.pp_ti, d["matched"])
 
     counters = state.counters
     counters = C.bump(counters, "merges", fetch.sum(-1))

@@ -2,7 +2,10 @@
 //
 // Replaces the TPU kernel repro/kernels/crc16/kernel.py::crc16_kernel
 // (body _crc_kernel): the same bitwise CRC (poly 0x1021, init 0xFFFF) over
-// the 4 little-endian tag bytes (ti lo, ti hi, clk lo, clk hi).
+// the 4 little-endian tag bytes (ti lo, ti hi, clk lo, clk hi), in
+// crc16.cuh. Split and Merge run that function inside their control
+// kernels (split_control.cu, merge_stage.cu); this standalone kernel is
+// the crc16_tag primitive.
 //
 // Bound: bytes. Each packet reads 8 bytes and writes 4; the 32 shift/xor
 // steps are register work far below the card's integer rate. Threads read
@@ -11,6 +14,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "crc16.cuh"
+
 namespace {
 
 __global__ void crc16_tag_kernel(const int32_t* __restrict__ ti,
@@ -18,22 +23,7 @@ __global__ void crc16_tag_kernel(const int32_t* __restrict__ ti,
                                  int32_t* __restrict__ out, int64_t n) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const uint32_t t = static_cast<uint32_t>(ti[i]);
-  const uint32_t c = static_cast<uint32_t>(clk[i]);
-  const uint32_t bytes[4] = {t & 0xFFu, (t >> 8) & 0xFFu, c & 0xFFu,
-                             (c >> 8) & 0xFFu};
-  uint32_t crc = 0xFFFFu;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    crc ^= bytes[k] << 8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t hi = (crc >> 15) & 1u;
-      crc = (crc << 1) & 0xFFFFu;
-      if (hi) crc ^= 0x1021u;
-    }
-  }
-  out[i] = static_cast<int32_t>(crc);
+  out[i] = static_cast<int32_t>(pp_tag_crc16(ti[i], clk[i]));
 }
 
 }  // namespace

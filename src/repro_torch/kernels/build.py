@@ -27,7 +27,10 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("crc16.cu", "acl_match.cu", "payload_store.cu",
-           "payload_fetch.cu", "maglev.cu", "paged_attention.cu")
+           "payload_fetch.cu", "maglev.cu", "paged_attention.cu",
+           "split_control.cu", "merge_stage.cu")
+HEADERS = ("crc16.cuh", "meta_tables.cuh",
+           "payload_fetch.cuh")  # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +46,9 @@ SIGNATURES = {
     "pp_paged_attention": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                            _i32, _i64, _i32, _i32, _i32, _i32, _i32, _i32,
                            _i32, _i32, _i32, _f32, _vp),
+    "pp_split_control": (_vp,) * 20 + (_i64, _i64, _i64, _i64, _i32, _i32,
+                                       _i32, _vp),
+    "pp_merge_stage": (_vp,) * 21 + (_i64, _i64, _i64, _i64, _i32, _vp),
 }
 
 
@@ -82,7 +88,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return h.hexdigest()[:16]

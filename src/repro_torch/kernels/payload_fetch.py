@@ -1,11 +1,14 @@
 """payload_fetch on the card: CUDA kernel ``csrc/payload_fetch.cu``.
 
 Replaces ``repro/kernels/payload_fetch/kernel.py::payload_fetch_kernel``.
-One warp per packet and one grid row per pipe: a matched packet copies its
-row out 16 bytes a thread and zeroes it; a masked-off packet (Merge hands
-those over with ``pp_ti = 0`` duplicates) writes a zero output row and
-leaves the table alone.  Bound by bytes: one read and two writes per
-matched row, one write per masked-off output row.
+One block per pipe runs ``csrc/payload_fetch.cuh``: it copies every masked
+row out, 16 bytes a thread, waits at a barrier and only then zeroes the
+rows, so two masked packets naming one row both receive it, as in the
+plain version; a masked-off packet (Merge hands those over with
+``pp_ti = 0`` duplicates) writes a zero output row and leaves the table
+alone.  ``merge_stage`` runs the same device code on Merge's path.  Bound
+by bytes: one read and two writes per masked row, one write per
+masked-off output row.
 
 ``payload_fetch_cuda`` launches the kernel and raises on CPU tensors;
 ``payload_fetch`` is the ``auto`` entry, which takes the plain version

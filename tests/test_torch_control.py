@@ -1,0 +1,381 @@
+"""Split's and Merge's control passes as the port runs them, one primitive
+each (``split_control``, ``merge_stage``), against the reference's
+``_split_control`` / ``_merge_control`` plus its ``crc16_tag`` and
+``payload_fetch`` (``backend="ref"``), on the same numpy inputs, compared
+exactly; plus the bindings of the two CUDA launchers, reachable without a
+card."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.backend import dispatch as jdispatch  # noqa: E402
+from repro.core import packet as JK  # noqa: E402
+from repro.core import park as JP  # noqa: E402
+from repro_torch import convert as CV  # noqa: E402
+from repro_torch.backend import dispatch as tdispatch  # noqa: E402
+from repro_torch.core.packet import OP_DROP  # noqa: E402
+from repro_torch.core.park import ParkConfig  # noqa: E402
+from repro_torch.kernels import launch_counts  # noqa: E402
+
+SPLIT_KEYS = ("enb", "ti", "clk", "evicted", "skip_occupied", "skip_small",
+              "park_len")
+MERGE_KEYS = ("matched", "premature", "crc_fail", "disabled", "is_drop_op",
+              "park_len")
+W = 32  # parked row width of the merge cases (a multiple of 16)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _meta(rng, m, max_exp, max_clk):
+    """Random (expiry, generation, length) tables with free and live
+    slots."""
+    exp = rng.integers(0, max_exp + 1, m).astype(np.int32)
+    gen = np.where(exp > 0, rng.integers(1, max_clk, m), 0).astype(np.int32)
+    ln = np.where(exp > 0, rng.integers(1, 161, m), 0).astype(np.int32)
+    return exp, gen, ln
+
+
+def _jstate(m, ti, clk, exp, gen, ln, ptable=None):
+    ptable = np.zeros((m, W), np.uint8) if ptable is None else ptable
+    return JP.ParkState(jnp.int32(ti), jnp.int32(clk), jnp.asarray(exp),
+                        jnp.asarray(gen), jnp.asarray(ln),
+                        jnp.asarray(ptable), jnp.zeros(16, jnp.int32))
+
+
+def _jpackets(rng, fields):
+    d = CV.numpy_packets(rng, len(fields["alive"]), 8)
+    d.update(fields)
+    return JK.PacketBatch(**{k: jnp.asarray(v) for k, v in d.items()})
+
+
+# --------------------------------------------------------------------------
+# split_control
+# --------------------------------------------------------------------------
+
+SPLIT_CFGS = {"exp1": dict(max_exp=1, max_clk=1 << 16),
+              "exp3 clk7": dict(max_exp=3, max_clk=7)}
+
+
+def _split_case(rng, m, b, cfg, alive_frac=0.85):
+    exp, gen, ln = _meta(rng, m, cfg["max_exp"], cfg["max_clk"])
+    regs = (int(rng.integers(0, m)), int(rng.integers(0, cfg["max_clk"])))
+    pkts = dict(alive=rng.random(b) < alive_frac,
+                payload_len=rng.integers(0, 400, b).astype(np.int32))
+    return regs, (exp, gen, ln), pkts
+
+
+def _split_reference(m, cfg, regs, meta, pkts, rng):
+    jcfg = JP.ParkConfig(capacity=m, **cfg)
+    (ti, clk, *jmeta), d = JP._split_control(
+        jcfg, _jstate(m, *regs, *meta), _jpackets(rng, pkts))
+    crc = JP.crc16_tag(d["ti"], d["clk"], backend="ref")
+    want = {k: np.asarray(d[k]) for k in SPLIT_KEYS}
+    want["crc"] = np.asarray(crc)
+    return (np.asarray(ti), np.asarray(clk), *map(np.asarray, jmeta)), want
+
+
+def _split_port(m, cfg, regs, meta, pkts):
+    pcfg = ParkConfig(capacity=m, **cfg)
+    return tdispatch("split_control", "ref")(
+        m, cfg["max_exp"], cfg["max_clk"], pcfg.min_park_len,
+        pcfg.pass_bytes, _t(np.int32(regs[0])), _t(np.int32(regs[1])),
+        *map(_t, meta), _t(pkts["alive"]), _t(pkts["payload_len"]))
+
+
+def _same(got, want, what):
+    got = got.numpy() if torch.is_tensor(got) else np.asarray(got)
+    assert got.dtype == np.asarray(want).dtype, (what, got.dtype)
+    assert np.array_equal(got, want), what
+
+
+@pytest.mark.parametrize("cfg", list(SPLIT_CFGS))
+@pytest.mark.parametrize("b", [8, 32, 96])
+@pytest.mark.parametrize("m", [16, 64])
+def test_split_control_matches_reference(m, b, cfg):
+    rng = np.random.default_rng(1000 * m + b + len(cfg))
+    regs, meta, pkts = _split_case(rng, m, b, SPLIT_CFGS[cfg])
+    want_state, want = _split_reference(m, SPLIT_CFGS[cfg], regs, meta,
+                                        pkts, rng)
+    got_state, got = _split_port(m, SPLIT_CFGS[cfg], regs, meta, pkts)
+    for i, (g, w) in enumerate(zip(got_state, want_state)):
+        _same(g, w, f"state {i}")
+    assert set(got) == set(SPLIT_KEYS) | {"crc"}
+    for k in got:
+        _same(got[k], want[k], k)
+
+
+def test_split_control_more_eligible_packets_than_slots():
+    """96 eligible packets on a 16-slot table: each slot is probed six
+    times, claimed, skipped while occupied and evicted in turn."""
+    rng = np.random.default_rng(5)
+    cfg = dict(max_exp=2, max_clk=1 << 16)
+    m, b = 16, 96
+    _, meta, _ = _split_case(rng, m, b, cfg)
+    pkts = dict(alive=np.ones(b, bool),
+                payload_len=rng.integers(160, 400, b).astype(np.int32))
+    want_state, want = _split_reference(m, cfg, (3, 9), meta, pkts, rng)
+    got_state, got = _split_port(m, cfg, (3, 9), meta, pkts)
+    for i, (g, w) in enumerate(zip(got_state, want_state)):
+        _same(g, w, f"state {i}")
+    for k in got:
+        _same(got[k], want[k], k)
+    assert want["evicted"].any() and want["skip_occupied"].any()
+
+
+@pytest.mark.parametrize("m", [16, 64])
+def test_split_control_with_pipe_axis_matches_per_pipe_reference(m):
+    rng = np.random.default_rng(m)
+    cfg = SPLIT_CFGS["exp3 clk7"]
+    cases = [_split_case(rng, m, 32, cfg) for _ in range(3)]
+    regs = [np.array([c[0][i] for c in cases], np.int32) for i in (0, 1)]
+    meta = [np.stack([c[1][i] for c in cases]) for i in range(3)]
+    pkts = {k: np.stack([c[2][k] for c in cases]) for k in cases[0][2]}
+    pcfg = ParkConfig(capacity=m, **cfg)
+    got_state, got = tdispatch("split_control", "ref")(
+        m, cfg["max_exp"], cfg["max_clk"], pcfg.min_park_len,
+        pcfg.pass_bytes, *map(_t, regs), *map(_t, meta),
+        _t(pkts["alive"]), _t(pkts["payload_len"]))
+    for p, c in enumerate(cases):
+        want_state, want = _split_reference(m, cfg, *c, rng)
+        for i, (g, w) in enumerate(zip(got_state, want_state)):
+            _same(g[p], w, f"pipe {p} state {i}")
+        for k in got:
+            _same(got[k][p], want[k], f"pipe {p} {k}")
+
+
+# --------------------------------------------------------------------------
+# merge_stage
+# --------------------------------------------------------------------------
+
+def _crc(ti, clk):
+    return np.asarray(JP.crc16_tag(jnp.asarray(ti, jnp.int32),
+                                   jnp.asarray(clk, jnp.int32),
+                                   backend="ref")).astype(np.int32)
+
+
+def _merge_case(rng, m, b):
+    """Packets returning to Merge over a table with live slots: honest
+    tags (valid CRC, current generation), stale generations, flipped CRCs,
+    out-of-range and negative tags with valid CRCs, disabled, dead and
+    header-less packets, explicit-drop ops, duplicate tags and a second
+    match with pp_clk = 0 after a free."""
+    exp, gen, ln = _meta(rng, m, 2, 1 << 16)
+    live = np.flatnonzero(exp > 0)
+    ptable = rng.integers(0, 256, (m, W)).astype(np.uint8)
+    ti = rng.choice(live, b).astype(np.int32)
+    clk = gen[ti].copy()
+    stale = rng.random(b) < 0.15
+    clk[stale] = (clk[stale] + 1) % (1 << 16)
+    f = dict(alive=rng.random(b) < 0.9, pp_valid=rng.random(b) < 0.95,
+             pp_enb=(rng.random(b) < 0.8).astype(np.int32),
+             pp_op=np.where(rng.random(b) < 0.25, OP_DROP, 0).astype(
+                 np.int32),
+             pp_ti=ti, pp_clk=clk)
+    if b >= 8:
+        f["pp_ti"][:4] = [m + 3, -1, -m - 2, -m]  # clamped, wraps, both
+        f["pp_clk"][:4] = gen[[m - 1, m - 1, 0, 0]]
+        f["pp_ti"][5] = f["pp_ti"][4]              # a duplicate tag
+        f["pp_clk"][5] = f["pp_clk"][4]
+        f["pp_ti"][7] = f["pp_ti"][6]              # matched, then pp_clk 0
+        f["pp_clk"][7] = 0
+        for i in range(8):
+            f["alive"][i] = f["pp_valid"][i] = True
+            f["pp_enb"][i] = 1
+    f["pp_crc"] = _crc(f["pp_ti"], f["pp_clk"])
+    flip = rng.random(b) < 0.1
+    flip[:8] = False
+    f["pp_crc"][flip] ^= 1
+    return (exp, gen, ln), ptable, f
+
+
+def _merge_reference(m, meta, ptable, f, rng):
+    jcfg = JP.ParkConfig(capacity=m, max_exp=2)
+    state = _jstate(m, 0, 0, *meta, ptable=ptable)
+    pk = _jpackets(rng, f)
+    jmeta, d = JP._merge_control(jcfg, state, pk, backend="ref")
+    rows, table = jdispatch("payload_fetch", "ref")(
+        state.ptable, pk.pp_ti, d["matched"])
+    return ([np.asarray(x) for x in jmeta],
+            {k: np.asarray(d[k]) for k in MERGE_KEYS},
+            np.asarray(rows), np.asarray(table))
+
+
+_HEADER = ("alive", "pp_valid", "pp_enb", "pp_op", "pp_ti", "pp_clk",
+           "pp_crc")
+
+
+def _merge_port(meta, ptable, f):
+    return tdispatch("merge_stage", "ref")(
+        _t(ptable), *map(_t, meta), *(_t(f[k]) for k in _HEADER))
+
+
+def _check_merge(got, want, where=lambda x: x):
+    (gmeta, gd, grows, gtable), (wmeta, wd, wrows, wtable) = got, want
+    for i, (g, w) in enumerate(zip(gmeta, wmeta)):
+        _same(where(g), w, f"meta {i}")
+    assert set(gd) == set(MERGE_KEYS)
+    for k in MERGE_KEYS:
+        _same(where(gd[k]), wd[k], k)
+    _same(where(grows), wrows, "parked rows")
+    _same(where(gtable), wtable, "table")
+
+
+@pytest.mark.parametrize("b", [8, 32, 96])
+@pytest.mark.parametrize("m", [16, 64])
+def test_merge_stage_matches_reference(m, b):
+    rng = np.random.default_rng(2000 * m + b)
+    meta, ptable, f = _merge_case(rng, m, b)
+    want = _merge_reference(m, meta, ptable, f, rng)
+    _check_merge(_merge_port(meta, ptable, f), want)
+    wd = want[1]
+    assert wd["matched"].any() and wd["premature"].any()
+    if b > 8:  # at B = 8 every packet is one of the planted tags
+        assert wd["crc_fail"].any() and wd["is_drop_op"].any()
+
+
+@pytest.mark.parametrize("m", [16, 64])
+def test_merge_stage_with_pipe_axis_matches_per_pipe_reference(m):
+    rng = np.random.default_rng(m + 1)
+    cases = [_merge_case(rng, m, 32) for _ in range(3)]
+    meta = [np.stack([c[0][i] for c in cases]) for i in range(3)]
+    ptable = np.stack([c[1] for c in cases])
+    f = {k: np.stack([c[2][k] for c in cases]) for k in _HEADER}
+    got = _merge_port(meta, ptable, f)
+    for p, c in enumerate(cases):
+        _check_merge(got, _merge_reference(m, *c, rng), lambda x: x[p])
+
+
+def test_merge_stage_second_match_after_free_gets_the_row_too():
+    """A packet matches and frees slot 5; a second packet names slot 5
+    with pp_clk = 0 and a valid CRC, so it matches the freed slot and
+    receives the same row: every row is gathered before any is cleared.
+    A third packet with a stale generation on another slot is premature,
+    and a clamped out-of-range tag reads the last slot."""
+    m = 16
+    exp = np.zeros(m, np.int32)
+    gen = np.zeros(m, np.int32)
+    ln = np.zeros(m, np.int32)
+    exp[[5, 9, m - 1]] = 1
+    gen[[5, 9, m - 1]] = [41, 42, 43]
+    ln[[5, 9, m - 1]] = [160, 161, 162]
+    ptable = np.arange(m * W, dtype=np.int64).reshape(m, W).astype(np.uint8)
+    ti = np.array([5, 5, 9, m + 4, 3], np.int32)
+    clk = np.array([41, 0, 7, 43, 0], np.int32)
+    f = dict(alive=np.ones(5, bool), pp_valid=np.ones(5, bool),
+             pp_enb=np.ones(5, np.int32),
+             pp_op=np.array([0, 0, 0, 0, OP_DROP], np.int32),
+             pp_ti=ti, pp_clk=clk, pp_crc=_crc(ti, clk))
+    rng = np.random.default_rng(0)
+    want = _merge_reference(m, (exp, gen, ln), ptable, f, rng)
+    got = _merge_port((exp, gen, ln), ptable, f)
+    _check_merge(got, want)
+    _, d, rows, table = got
+    assert d["matched"].tolist() == [True, True, False, True, True]
+    assert d["park_len"].tolist() == [160, 0, 0, 162, 0]
+    assert torch.equal(rows[0], rows[1]) and rows[0].any()
+    assert torch.equal(rows[3], _t(ptable[m - 1]))
+    assert not table[5].any() and not table[3].any()
+    assert torch.equal(table[m - 1], _t(ptable[m - 1]))  # no clear past M
+    assert d["is_drop_op"].tolist() == [False] * 4 + [True]
+
+
+def test_merge_stage_all_masked_touches_nothing():
+    rng = np.random.default_rng(3)
+    meta, ptable, f = _merge_case(rng, 16, 8)
+    f["pp_enb"][:] = 0
+    got = _merge_port(meta, ptable, f)
+    _check_merge(got, _merge_reference(16, meta, ptable, f, rng))
+    assert not got[2].any() and np.array_equal(got[3].numpy(), ptable)
+    assert got[1]["disabled"].any()
+
+
+# --------------------------------------------------------------------------
+# the CUDA launchers' checks and bindings, reachable without a card
+# --------------------------------------------------------------------------
+
+def _fake_library(monkeypatch, module, calls):
+    """Point ``module``'s wrapper at C functions built from
+    ``build.SIGNATURES`` that record their arguments (ctypes raises on a
+    count or type the signature does not take), as
+    ``tests/test_torch_primitives.py`` does.  The launch counter is
+    restored afterwards."""
+    import ctypes
+    from repro_torch.kernels import build
+
+    class Lib:
+        pass
+
+    lib = Lib()
+    for name, argtypes in build.SIGNATURES.items():
+        proto = ctypes.CFUNCTYPE(ctypes.c_int, *argtypes)
+        setattr(lib, name,
+                proto(lambda *a, name=name: calls.append((name, a)) or 0))
+    monkeypatch.setattr(module, "library", lambda: lib)
+    monkeypatch.setattr(module, "require_cuda",
+                        lambda name, *t: torch.device("cpu"))
+    monkeypatch.setattr(module, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(module.COUNT, "launches", module.COUNT.launches)
+
+
+def test_split_control_binding_matches_its_signature(monkeypatch):
+    from repro_torch.kernels import build
+    from repro_torch.kernels import split_control as SC
+    calls = []
+    _fake_library(monkeypatch, SC, calls)
+    before = SC.COUNT.launches
+    m, b = 16, 8
+    z = torch.zeros(2, dtype=torch.int32)
+    meta = [torch.zeros(2, m, dtype=torch.int32) for _ in range(3)]
+    alive = torch.ones(2, b, dtype=torch.bool)
+    plen = torch.full((2, b), 200, dtype=torch.int32)
+    (ti, clk, *new_meta), d = SC.split_control_cuda(
+        m, 2, 1 << 16, 160, 160, z, z, *meta, alive, plen)
+    assert [c[0] for c in calls] == ["pp_split_control"]
+    args = calls[0][1]
+    assert len(args) == len(build.SIGNATURES["pp_split_control"]) == 28
+    # pipes, b, m, max_clk, max_exp, min_park_len, pass_bytes
+    assert args[20:27] == (2, b, m, 1 << 16, 2, 160, 160)
+    assert SC.COUNT.launches == before + 1          # one launch per call
+    assert tuple(ti.shape) == (2,) and tuple(new_meta[0].shape) == (2, m)
+    assert [(k, d[k].dtype) for k in d] == list(SC.DECISIONS)
+    assert all(tuple(v.shape) == (2, b) for v in d.values())
+
+
+def test_merge_stage_binding_matches_its_signature(monkeypatch):
+    from repro_torch.kernels import build
+    from repro_torch.kernels import merge_stage as MS
+    calls = []
+    _fake_library(monkeypatch, MS, calls)
+    before = MS.COUNT.launches
+    m, b = 16, 8
+    table = torch.zeros(1, m, W, dtype=torch.uint8)
+    meta = [torch.zeros(1, m, dtype=torch.int32) for _ in range(3)]
+    flag = torch.ones(1, b, dtype=torch.bool)
+    z = torch.zeros(1, b, dtype=torch.int32)
+    new_meta, d, parked, tab = MS.merge_stage_cuda(
+        table, *meta, flag, flag, z, z, z, z, z)
+    assert [c[0] for c in calls] == ["pp_merge_stage"]
+    args = calls[0][1]
+    assert len(args) == len(build.SIGNATURES["pp_merge_stage"]) == 27
+    assert args[21:26] == (1, b, m, W, OP_DROP)   # pipes, b, m, width, op
+    assert MS.COUNT.launches == before + 1
+    assert tab is table and tuple(parked.shape) == (1, b, W)
+    assert [(k, d[k].dtype) for k in d] == list(MS.DECISIONS)
+
+
+def test_merge_stage_cuda_raises_past_its_shared_memory():
+    from repro_torch.kernels import merge_stage as MS
+    b = MS.MAX_SHARED // 5 + 1
+    z = torch.zeros(b, dtype=torch.int32)
+    flag = torch.ones(b, dtype=torch.bool)
+    with pytest.raises(ValueError, match="shared memory"):
+        MS.merge_stage_cuda(torch.zeros(16, W, dtype=torch.uint8),
+                            *(torch.zeros(16, dtype=torch.int32)
+                              for _ in range(3)),
+                            flag, flag, z, z, z, z, z)
+    assert launch_counts()["merge_stage"] == 0

@@ -174,11 +174,38 @@ def _cpu_args(name):
                           torch.ones(8, dtype=torch.bool)),
         "payload_fetch": (torch.zeros(4, 16, dtype=torch.uint8), z,
                           torch.ones(8, dtype=torch.bool)),
+        # capacity 16, max_exp 2, max_clk, min_park_len, pass_bytes; two
+        # pipes of 8 packets, all eligible
+        "split_control": (16, 2, 1 << 16, 160, 160, z[:2], z[:2],
+                          *(torch.zeros(2, 16, dtype=torch.int32)
+                            for _ in range(3)),
+                          torch.ones(2, 8, dtype=torch.bool),
+                          torch.full((2, 8), 200, dtype=torch.int32)),
+        # every packet returns with a tag on row 0
+        "merge_stage": (torch.zeros(16, 16, dtype=torch.uint8),
+                        *(torch.zeros(16, dtype=torch.int32)
+                          for _ in range(3)),
+                        torch.ones(8, dtype=torch.bool),
+                        torch.ones(8, dtype=torch.bool), z + 1, z, z, z, z),
     }[name]
 
 
+def _clone(a):
+    return a.clone() if torch.is_tensor(a) else a
+
+
+def _leaves(out):
+    """The tensors of a primitive's output, in order."""
+    if torch.is_tensor(out):
+        return [out]
+    if isinstance(out, dict):
+        return [t for v in out.values() for t in _leaves(v)]
+    return [t for v in out for t in _leaves(v)]
+
+
 @pytest.mark.parametrize("name", ["crc16_tag", "acl_match", "maglev_select",
-                                  "payload_store", "payload_fetch"])
+                                  "payload_store", "payload_fetch",
+                                  "split_control", "merge_stage"])
 def test_cuda_backend_raises_on_cpu_tensors(name):
     before = launch_counts()
     with pytest.raises((RuntimeError, NotImplementedError)):
@@ -188,13 +215,14 @@ def test_cuda_backend_raises_on_cpu_tensors(name):
 
 
 @pytest.mark.parametrize("name", ["crc16_tag", "acl_match", "maglev_select",
-                                  "payload_store", "payload_fetch"])
+                                  "payload_store", "payload_fetch",
+                                  "split_control", "merge_stage"])
 def test_auto_backend_runs_plain_version_on_cpu(name):
     args = _cpu_args(name)
-    got = tdispatch(name, "auto")(*(a.clone() for a in args))
-    want = tdispatch(name, "ref")(*(a.clone() for a in args))
-    for g, w in zip(got if isinstance(got, tuple) else (got,),
-                    want if isinstance(want, tuple) else (want,)):
+    got = _leaves(tdispatch(name, "auto")(*map(_clone, args)))
+    want = _leaves(tdispatch(name, "ref")(*map(_clone, args)))
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert all(v == 0 for v in launch_counts().values())
 
@@ -208,6 +236,13 @@ def test_backend_config_validates_and_overrides():
     assert cfg.mode("payload_store") == "ref"
     assert cfg.mode("crc16_tag") == "auto"
     assert cfg == BackendConfig("auto", (("payload_store", "ref"),))
+    cfg = BackendConfig("cuda", {"split_control": "ref",
+                                 "merge_stage": "auto"})
+    assert cfg.mode("split_control") == "ref"
+    assert cfg.mode("merge_stage") == "auto"
+    assert cfg.mode("payload_fetch") == "cuda"
+    assert cfg.overrides == (("merge_stage", "auto"),
+                             ("split_control", "ref"))
 
 
 # --------------------------------------------------------------------------
