@@ -19,8 +19,16 @@ Phases (any failure raises, so the script exits non-zero):
    the batch (M 64, 256 packets), without a pipe axis, with every packet
    masked, and for Merge on returning packets with flipped CRCs,
    out-of-range and negative tags with valid CRCs, explicit drops,
-   duplicate tags and a second match with pp_clk 0 after a free.  Each
-   wrapper call must add exactly one launch to its kernel's count.  Each
+   duplicate tags and a second match with pp_clk 0 after a free.  The NF
+   chain's kernel (``nf_chain``) is held exactly against its plain version
+   (headers, drops, NAT tables, ``stale_hits``, states) on FW -> NAT at 8
+   pipes x 256 packets, FW -> NAT -> LB with a per-pipe ``lb_up`` mix, NAT
+   alone at capacity 8 and 16 (exhaustion, CLOCK aging, stale hits), 3
+   flows repeated in a batch, no pipe axis with a 0-d flag, capacity 16384
+   (shared memory near full) and 32768 (the walk in device memory), the
+   MAC swap alone and a chain of 12 NFs, past the stage limit (two
+   launches).  Each wrapper call must add exactly one launch to its
+   kernel's count (``nf_chain`` one per 8 stages).  Each
    kernel is timed (median of 30 launches, CUDA events) beside its plain
    version, one PyTorch library call where one computes the same
    function, and its bound: the larger of the bytes it must move over
@@ -36,9 +44,11 @@ Phases (any failure raises, so the script exits non-zero):
    from the same seeded inputs; counters, telemetry, NF counters,
    occupancy and merged wire bytes must be identical, the goodput gain
    positive, and every kernel of the path launched during each card run:
-   ``split_control`` once per Split call and ``merge_stage`` once per Merge
-   call, the standalone ``crc16`` and ``payload_fetch`` never (their code
-   runs inside those two).
+   ``split_control`` once per Split call, ``merge_stage`` once per Merge
+   call and ``nf_chain`` once per ``Chain.run`` call; the standalone
+   ``crc16`` and ``payload_fetch`` never (their code runs inside the first
+   two), nor ``acl_match`` and ``maglev`` (theirs runs inside
+   ``nf_chain``).
 5. The §7 chain: the ``chain`` scenario family at full geometry (FW ->
    NAT -> Maglev LB; datacenter and enterprise traffic from a 1024-flow
    pool, 16384 packets, capacity 4096, max_exp 4, parking with and without
@@ -47,8 +57,9 @@ Phases (any failure raises, so the script exits non-zero):
    group of two points.  Per point the counters, telemetry, NF counters,
    occupancy and gain must be identical; ``verify_oracle`` must hold on
    every CPU point; the datacenter gain must be positive and higher with
-   recirculation; all five kernels of the chain must launch during the
-   card run, with the same counts per Split and Merge call as phase 4.
+   recirculation; the four kernels of the chain must launch during the
+   card run, with the same counts per Split, Merge and ``Chain.run`` call
+   as phase 4.
 6. Parked-KV serving at full width: ``repro_torch.launch.serve`` on
    Qwen2.5-3B (full config, 36 layers, weights from a seeded generator on
    the card), 4 requests of prompt 128 and gen 32, max_batch 4, 16-token
@@ -67,9 +78,10 @@ Phases (any failure raises, so the script exits non-zero):
    each chain group and of a serving prefill, timed untraced and then
    repeated under ``torch.profiler``, give device kernels per step and the
    device's busy time against the untraced wall time.  One traced call of
-   ``split_control``, ``merge_stage``, ``payload_store`` and of
-   ``paged_attention`` (engine and batched shapes) must each run exactly
-   one device kernel.
+   ``split_control``, ``merge_stage``, ``payload_store``, ``nf_chain`` and
+   of ``paged_attention`` (engine and batched shapes) must each run
+   exactly one device kernel; its duration goes into the kernels line
+   (``profiler_ms``).
 8. A ``kernels`` JSON line, the card line, and the final ``ok`` line.
 
 Phase 2 also holds ``paged_attention`` against its plain version within
@@ -112,6 +124,10 @@ BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core rate, the same sheet
 CRC16_OPS = 4 * 2 + 4 * (2 + 8 * 5)
 # maglev: four multiply-xor steps, a mask and a modulo per packet
 MAGLEV_OPS = 4 * 2 + 2
+# NAT's walk per live packet: the hash (7), and per probe slot a wrap, two
+# key compares, an expiry test and the three ballots' predicates (6), plus
+# the rewrite (2)
+NAT_OPS = 7 + 8 * 6 + 2
 SEED = 20200611
 RECIRC1_PACKETS = 4096  # the chain phase runs recirculation at full depth
 PROFILE_STEPS = 2  # traced steps of each dataplane trace: each traced
@@ -131,14 +147,19 @@ REPLACES = {
     # on Split's and Merge's path
     "split_control": CRC16_TPU,
     "merge_stage": f"{CRC16_TPU}, {FETCH_TPU}",
+    # the NF chain's kernel runs acl_match's and maglev's device code
+    "nf_chain": "src/repro/kernels/acl_match/kernel.py:28, "
+                "src/repro/kernels/maglev/kernel.py:37",
 }
 # the kernels of the Split -> FW -> NAT -> Merge path (phase 4), and of the
 # §7 chain (phase 5); the standalone crc16 and payload_fetch kernels are off
-# those paths (their code runs inside split_control and merge_stage)
+# those paths (their code runs inside split_control and merge_stage), and so
+# are acl_match and maglev (their code runs inside nf_chain)
 DATAPLANE_KERNELS = ("split_control", "payload_store", "merge_stage",
-                     "acl_match")
-CHAIN_KERNELS = DATAPLANE_KERNELS + ("maglev",)
+                     "nf_chain")
+CHAIN_KERNELS = DATAPLANE_KERNELS
 INSIDE_CONTROL = ("crc16", "payload_fetch")
+INSIDE_CHAIN = ("acl_match", "maglev")
 # paged attention against its plain version: the reference's tolerances
 # (tests/test_kernels.py), and the bounds of the serving phase
 PAGED_ATOL, PAGED_RTOL = 0.02, 0.05
@@ -327,17 +348,21 @@ def check_kernels(dev) -> dict:
                      bips),
                 R.maglev_select(*fields, table, bips)))
     err["split_control"], err["merge_stage"] = check_control(gen, dev)
+    err["nf_chain"] = check_nf_chain(gen, dev)
     torch.cuda.synchronize()
     print("kernels vs plain: exact on every case, one launch per call "
           "(B 256/264, W 160/352, R 1/20, duplicates, masked, out of range, "
           "every packet on one row, one row fetched twice; maglev (P, B) "
           "2x256/2x320/1x264, shared and per-pipe tables of 251 and 65537, "
-          "dead rows; split_control and merge_stage as listed above)")
+          "dead rows; split_control, merge_stage and nf_chain as listed "
+          "above)")
     return err
 
 
 def leaves(out) -> list:
-    """The tensors of a primitive's output, in order."""
+    """The tensors of a primitive's output, in order (None skipped)."""
+    if out is None:
+        return []
     if torch.is_tensor(out):
         return [out]
     if isinstance(out, dict):
@@ -425,20 +450,22 @@ def merge_args(gen, lead, b, m, w, dev, corrupt=False) -> list:
                                 op, ti, clk, crc)]
 
 
+def same_all(label, got, want) -> int:
+    """Every tensor of a kernel's output against the plain version's."""
+    got, want = leaves(got), leaves(want)
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} outputs, plain "
+                             f"version {len(want)}")
+    return max(must_equal(f"{label} output {k}", g, v)
+               for k, (g, v) in enumerate(zip(got, want)))
+
+
 def check_control(gen, dev) -> tuple[int, int]:
     """Phase 2 for Split's and Merge's control kernels: every output
     against the plain version on the same inputs, exactly."""
     from repro_torch.backend import ref as R
     from repro_torch.core.park import ParkConfig
     from repro_torch.kernels import merge_stage, split_control
-
-    def same_all(label, got, want) -> int:
-        got, want = leaves(got), leaves(want)
-        if len(got) != len(want):
-            raise AssertionError(f"{label}: {len(got)} outputs, plain "
-                                 f"version {len(want)}")
-        return max(must_equal(f"{label} output {k}", g, v)
-                   for k, (g, v) in enumerate(zip(got, want)))
 
     e_split = e_merge = 0
     base = ParkConfig(capacity=4096, max_exp=2)
@@ -478,16 +505,166 @@ def check_control(gen, dev) -> tuple[int, int]:
     return e_split, e_merge
 
 
+def nf_chain_inputs(gen, kinds, lead, b, cap, dev, flows=512, up=None):
+    """``nf_chain``'s arguments for the chain ``kinds`` (``fw``: up to 10
+    rules from the flow pool and 10 from outside it; ``nat``: capacity
+    ``cap``; ``lb``: fault target 3,
+    ``up`` its flag): packets of ``lead`` pipes x ``b`` drawn from
+    ``flows`` (src_ip, src_port) flows, 90 % alive, and NAT tables with
+    about a third of the slots live, a third aged out and a third free,
+    their keys drawn from the same flows so that hits, stale hits and
+    inserts all happen.  Returns ``(chain, fields, stages)``."""
+    from repro_torch.backend.ref import NF_FIELDS
+    from repro_torch.nf.chain import Chain
+    from repro_torch.nf.firewall import Firewall
+    from repro_torch.nf.macswap import MacSwap
+    from repro_torch.nf.maglev import MaglevLB
+    from repro_torch.nf.nat import Nat
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
+
+    shape = lead + (b,)
+    pool_ip = ints(1, 1 << 30, (flows,))
+    pool_port = ints(1024, 65536, (flows,))
+    pick = torch.randint(0, flows, shape, generator=gen)
+    fields = dict(
+        alive=torch.rand(shape, generator=gen) < 0.9,
+        src_ip=pool_ip[pick], dst_ip=ints(-(1 << 31), (1 << 31) - 1, shape),
+        src_port=pool_port[pick], dst_port=ints(1024, 65536, shape),
+        proto=torch.where(torch.rand(shape, generator=gen) < 0.8, 17,
+                          6).to(torch.int32),
+        src_mac=ints(0, (1 << 31) - 1, shape),
+        dst_mac=ints(0, (1 << 31) - 1, shape))
+    rules = tuple(int(v) for v in torch.cat([pool_ip[:min(10, flows // 4)],
+                                             ints(1 << 30, 1 << 31, (10,))]))
+    make = dict(fw=lambda: Firewall(rules=rules),
+                nat=lambda: Nat(capacity=cap),
+                lb=lambda: MaglevLB(fault_target=3), macswap=MacSwap)
+    chain = Chain(tuple(make[k]() for k in kinds))
+    pipes = lead[0] if lead else None
+    states = []
+    for nf, st in zip(chain.nfs, chain.init_state("cpu", pipes)):
+        if isinstance(nf, Nat):
+            tab = lead + (cap,)
+            slot_flow = torch.randint(0, flows, tab, generator=gen)
+            kind = torch.randint(0, 3, tab, generator=gen)
+            st = dict(key_ip=torch.where(kind < 2, pool_ip[slot_flow], -1),
+                      key_port=torch.where(kind < 2, pool_port[slot_flow],
+                                           -1),
+                      exp=torch.where(kind == 0, ints(1, nf.max_exp + 1, tab),
+                                      0),
+                      stale_hits=ints(0, 5, lead))
+        if isinstance(st, dict):
+            st = {k: v.to(dev) for k, v in st.items()}
+        elif torch.is_tensor(st):
+            st = st.to(dev)
+        states.append(st)
+    ctx = None if up is None else {"lb_up": up.to(dev)}
+    stages = chain.stages(tuple(states), ctx)
+    return chain, tuple(fields[f].to(dev) for f in NF_FIELDS), stages
+
+
+def check_nf_chain(gen, dev) -> int:
+    """Phase 2 for the NF chain's kernel: headers, drops, NAT tables and
+    ``stale_hits`` against the plain version on the same inputs, exactly,
+    one launch per call (two past the stage limit)."""
+    from repro_torch.backend import ref as R
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import nf_chain as NC
+
+    mix = torch.tensor([True, False, True, True, False, True, False, True])
+    cases = (
+        ("8x256 fw,nat C4096", ("fw", "nat"), (8,), 256, 4096, {}),
+        ("8x256 fw,nat,lb C4096, per-pipe lb_up", ("fw", "nat", "lb"),
+         (8,), 256, 4096, dict(up=mix)),
+        ("2x256 nat C8 (exhaustion, CLOCK, stale hits)", ("nat",), (2,),
+         256, 8, dict(flows=40)),
+        ("2x256 nat C16", ("nat",), (2,), 256, 16, dict(flows=40)),
+        ("2x256 fw,nat C64, 3 flows repeated", ("fw", "nat"), (2,), 256, 64,
+         dict(flows=3)),
+        ("no pipe axis, 264 fw,nat,lb C4096, lb_up 0-d down",
+         ("fw", "nat", "lb"), (), 264, 4096, dict(up=torch.tensor(False))),
+        ("2x320 fw,nat C16384 (shared memory near full)", ("fw", "nat"),
+         (2,), 320, 16384, {}),
+        ("2x320 fw,nat C32768 (walk in device memory)", ("fw", "nat"), (2,),
+         320, 32768, {}),
+        ("8x256 macswap", ("macswap",), (8,), 256, 8, {}),
+        ("2x256 (fw,nat,lb,macswap) x 3, past the stage limit",
+         ("fw", "nat", "lb", "macswap") * 3, (2,), 256, 64,
+         dict(up=torch.tensor([True, False]))),
+    )
+    err = 0
+    for label, kinds, lead, b, cap, kw in cases:
+        _, fields, stages = nf_chain_inputs(gen, kinds, lead, b, cap, dev,
+                                            **kw)
+        # on copies of the fields: the plain version hands back the fields
+        # that no stage writes, and so does the kernel, which must not
+        # write into them
+        want = R.nf_chain(tuple(f.clone() for f in fields), stages)
+        launches = -(-len(stages) // NC.MAX_STAGES)
+        before = launch_counts()["nf_chain"]
+        got = NC.nf_chain_cuda(fields, stages)
+        if launch_counts()["nf_chain"] - before != launches:
+            raise AssertionError(f"nf_chain {label}: one call added "
+                                 f"{launch_counts()['nf_chain'] - before} "
+                                 f"launches, not {launches}")
+        err = max(err, same_all(f"nf_chain {label}", got, want))
+        nat = [k for k, st in enumerate(stages) if st.kind == "nat"]
+        stale = sum(int(want[2][k].stale_hits.sum()
+                        - stages[k].state.stale_hits.sum())
+                    for k in nat)
+        print(f"nf_chain {label}: exact; {int(want[1].sum())} dropped, "
+              f"{stale} stale hits, {launches} launch(es)")
+        if "nat" in kinds and cap == 8 and not stale:
+            raise AssertionError(f"nf_chain {label}: no stale hit to check")
+    return err
+
+
+def nf_chain_bound(fields, stages) -> dict:
+    """Bytes and operations ``nf_chain`` must spend on these inputs: the
+    header fields that the stages read (``NF_READS``) read once and those
+    they write (``NF_WRITES``) written once, and the drops written; each
+    NAT table read and written once and its stale_hits; the rules, LB
+    tables and backends read once.  Operations for the live packets only:
+    2 per rule, NAT's walk, maglev's hash."""
+    from repro_torch.backend.ref import NF_FIELDS, NF_READS, NF_WRITES
+    alive = fields[0]
+    n, live = alive.numel(), int(alive.sum())
+    size = dict(zip(NF_FIELDS, (f.element_size() for f in fields)))
+    read = {f for st in stages for f in NF_READS[st.kind]}
+    written = {f for st in stages for f in NF_WRITES[st.kind]}
+    nbytes = n * (sum(size[f] for f in read) + sum(size[f] for f in written)
+                  + 1)
+    ops = 0
+    for st in stages:
+        if st.kind == "fw":
+            nbytes += st.state.rules.numel() * 4
+            ops += live * 2 * st.state.rules.numel()
+        elif st.kind == "nat":
+            nbytes += 2 * 4 * sum(t.numel() for t in st.state)
+            ops += live * NAT_OPS
+        elif st.kind == "lb":
+            lb = st.state
+            nbytes += 4 * sum(t.numel() for t in (lb.table, lb.backend_ips,
+                                                  lb.table_down)
+                              if t is not None)
+            ops += live * MAGLEV_OPS
+    return dict(bound_bytes=nbytes, bound_ops=ops)
+
+
 def time_kernels(dev) -> dict:
     """Times at the 8-pipe main path shapes: 8 pipes x 256 packets,
     M = 4096, W = 160, R = 20 (Split's and Merge's control kernels on
-    ``split_args`` / ``merge_args`` inputs, max_exp 2); maglev at the chain
-    path's 2 pipes x 256 packets with the shared 251-entry table and 8
-    backends."""
+    ``split_args`` / ``merge_args`` inputs, max_exp 2; the NF chain FW ->
+    NAT at capacity 4096 on ``nf_chain_inputs``); maglev, and the NF chain
+    FW -> NAT -> LB, at the chain path's 2 pipes x 256 packets with the
+    shared 251-entry table and 8 backends."""
     from repro_torch.backend import ref as R
     from repro_torch.core.park import ParkConfig
     from repro_torch.kernels import acl_match, crc16, maglev, payload_fetch
-    from repro_torch.kernels import merge_stage, payload_store, split_control
+    from repro_torch.kernels import merge_stage, nf_chain, payload_store
+    from repro_torch.kernels import split_control
     from repro_torch.nf.maglev import MaglevLB, build_table
 
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -570,6 +747,16 @@ def time_kernels(dev) -> dict:
         library_ms=None,
         bound_bytes=n * 24 + table.numel() * 4 + bips.numel() * 4,
         bound_ops=n * MAGLEV_OPS)
+
+    # the NF chain at pipes8's FW (20 rules) -> NAT (C 4096), and at the
+    # chain path's 2 x 256 FW -> NAT -> LB beside it
+    for key, kinds, lead in (("nf_chain", ("fw", "nat"), (8,)),
+                             ("nf_chain chain", ("fw", "nat", "lb"), (2,))):
+        _, nf_fields, stages = nf_chain_inputs(gen, kinds, lead, b, m, dev)
+        rows[key] = dict(
+            ms=device_ms(lambda: nf_chain.nf_chain_cuda(nf_fields, stages)),
+            plain_ms=device_ms(lambda: R.nf_chain(nf_fields, stages)),
+            library_ms=None, **nf_chain_bound(nf_fields, stages))
     for name, r in rows.items():
         by_bytes = r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
         by_ops = r["bound_ops"] / FP32_OPS_PER_S * 1e3
@@ -673,14 +860,15 @@ def device_busy(run, dev) -> dict:
                 busy_s=sum(v[1] for v in by_name.values()) / 1e6, top=top)
 
 
-def one_kernel_per_call(dev) -> None:
-    """One traced call of ``payload_store``, ``split_control`` and
-    ``merge_stage`` (8 pipes x 256 packets, M 4096, W 160) and of
-    ``paged_attention`` (engine and batched shapes), after a warm call,
-    must each run exactly one device kernel: no fill, no scratch zeroing,
-    no copy, no second pass."""
+def one_kernel_per_call(dev) -> dict:
+    """One traced call of ``payload_store``, ``split_control``,
+    ``merge_stage`` and ``nf_chain`` (8 pipes x 256 packets, M 4096, W 160;
+    FW -> NAT at capacity 4096) and of ``paged_attention`` (engine and
+    batched shapes), after a warm call, must each run exactly one device
+    kernel: no fill, no scratch zeroing, no copy, no second pass.  Returns
+    each kernel's duration by the profiler, in ms."""
     from repro_torch.core.park import ParkConfig
-    from repro_torch.kernels import (merge_stage, paged_attention,
+    from repro_torch.kernels import (merge_stage, nf_chain, paged_attention,
                                      payload_store, split_control)
 
     gen = torch.Generator().manual_seed(SEED + 5)
@@ -688,11 +876,19 @@ def one_kernel_per_call(dev) -> None:
     sargs = split_args(gen, ParkConfig(capacity=4096, max_exp=2), (8,), 256,
                        dev)
     margs = merge_args(gen, (8,), 256, 4096, 160, dev, corrupt=True)
+    _, nf_fields, stages = nf_chain_inputs(gen, ("fw", "nat"), (8,), 256,
+                                           4096, dev)
+    # the same call with every packet dead: the table copies without the
+    # walk, whose share of the kernel's duration the difference gives
+    dead = (torch.zeros_like(nf_fields[0]),) + nf_fields[1:]
     runs = {"payload_store": lambda d: payload_store.payload_store_cuda(
                 t, p, i, e),
             "split_control": lambda d: split_control.split_control_cuda(
                 *sargs),
-            "merge_stage": lambda d: merge_stage.merge_stage_cuda(*margs)}
+            "merge_stage": lambda d: merge_stage.merge_stage_cuda(*margs),
+            "nf_chain": lambda d: nf_chain.nf_chain_cuda(nf_fields, stages),
+            "nf_chain, every packet dead": lambda d: nf_chain.nf_chain_cuda(
+                dead, stages)}
     for name, args in (("engine", engine_paged(gen, dev)),
                        ("batched", batched_paged(gen, dev))):
         runs[f"paged_attention {name}"] = (
@@ -701,6 +897,7 @@ def one_kernel_per_call(dev) -> None:
     # a short profile taken right after a long one records no device
     # events (seen with torch 2.11), so a first profile is thrown away
     device_busy(runs["payload_store"], dev)
+    durations = {}
     for label, run in runs.items():
         run(dev)
         prof = device_busy(run, dev)
@@ -708,8 +905,13 @@ def one_kernel_per_call(dev) -> None:
         if prof["kernels"] != 1:
             raise AssertionError(f"{label}: one call ran {prof['kernels']} "
                                  f"device kernels ({names}), not 1")
+        durations[label] = prof["busy_s"] * 1e3
         print(f"profile {label}: one call, one device kernel of "
-              f"{prof['busy_s'] * 1e3:.6f} ms ({names[0][:70]})")
+              f"{durations[label]:.6f} ms ({names[0][:70]})")
+    walk = durations["nf_chain"] - durations["nf_chain, every packet dead"]
+    print(f"profile nf_chain: the NAT walk over 8 x 256 packets takes "
+          f"{walk:.6f} ms, {walk / durations['nf_chain']:.3f} of the kernel")
+    return durations
 
 
 def profile_steps(label: str, run, dev, steps: int) -> None:
@@ -734,15 +936,19 @@ def profile_steps(label: str, run, dev, steps: int) -> None:
 
 
 @contextlib.contextmanager
-def park_calls():
-    """Counts the Split and Merge calls made while the block runs: the
-    engine's own and the retry Splits of ``recirc_fn``."""
+def path_calls():
+    """Counts the Split, Merge and ``Chain.run`` calls made while the block
+    runs: the engine's own, the retry Splits of ``recirc_fn``, and the
+    chain runs of the engine and of each NF called alone (the runner's
+    cycle-cost probes)."""
     from repro_torch.core import park
+    from repro_torch.nf.chain import Chain
     from repro_torch.switchsim import engine as E
 
-    calls = {"split_fn": 0, "merge_fn": 0}
+    calls = {"split_fn": 0, "merge_fn": 0, "run": 0}
     saved = [(mod, name, getattr(mod, name))
-             for mod in (park, E) for name in calls]
+             for mod in (park, E) for name in ("split_fn", "merge_fn")]
+    saved.append((Chain, "run", Chain.run))
 
     def counted(name, fn):
         def call(*args, **kw):
@@ -761,15 +967,17 @@ def park_calls():
 
 def check_launches(label, counts, calls, kernels) -> None:
     """Every kernel of the path launched; ``split_control`` once per Split
-    call and ``merge_stage`` once per Merge call; the standalone ``crc16``
-    and ``payload_fetch`` never (their code runs inside those two)."""
+    call, ``merge_stage`` once per Merge call and ``nf_chain`` once per
+    ``Chain.run`` call; the standalone ``crc16`` and ``payload_fetch``
+    never (their code runs inside the first two), nor ``acl_match`` and
+    ``maglev`` (theirs runs inside ``nf_chain``)."""
     missing = [k for k in kernels if counts[k] == 0]
     if missing:
         raise AssertionError(f"{label}: kernels never launched on the card: "
                              f"{missing}")
     want = {"split_control": calls["split_fn"],
-            "merge_stage": calls["merge_fn"],
-            **dict.fromkeys(INSIDE_CONTROL, 0)}
+            "merge_stage": calls["merge_fn"], "nf_chain": calls["run"],
+            **dict.fromkeys(INSIDE_CONTROL + INSIDE_CHAIN, 0)}
     wrong = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
     if wrong:
         raise AssertionError(f"{label}: launches (counted, wanted) {wrong}")
@@ -816,7 +1024,7 @@ def engine(dev, packets: int = 16384):
     for label, run, per_pipe in runs:
         sync(dev)
         reset_launch_counts()
-        with park_calls() as calls:
+        with path_calls() as calls:
             t0 = time.perf_counter()
             gpu = run(dev)
             sync(dev)
@@ -886,7 +1094,7 @@ def chain_phase(dev):
 
     sync(dev)
     reset_launch_counts()
-    with park_calls() as calls:
+    with path_calls() as calls:
         gpu, gpu_walls = run_groups(dev)
     counts = launch_counts()
     cpu, cpu_walls = run_groups("cpu")
@@ -1340,7 +1548,7 @@ def main() -> int:
     stamp("phase 6 (serving)")
     # phase 7, after every timed run: a torch.profiler session slows the
     # launches that follow it in the same process
-    one_kernel_per_call(dev)
+    durations = one_kernel_per_call(dev)
     for label, run, steps in traced + chain_traced + serve_traced:
         profile_steps(label, run, dev, steps)
     stamp("phase 7 (traces)")
@@ -1348,10 +1556,13 @@ def main() -> int:
     # ``launches`` is the count on the kernel's own main path: pipes8 for
     # the Split -> FW -> NAT -> Merge kernels (0 for crc16 and
     # payload_fetch, whose code runs inside split_control and merge_stage
-    # there), the chain for maglev, the full-width serving run for
-    # paged_attention (whose times are those of the engine's shape;
-    # ``batched`` holds the batched shape's)
-    main_path = dict.fromkeys(DATAPLANE_KERNELS + INSIDE_CONTROL, "pipes8")
+    # there, and for acl_match, whose code runs inside nf_chain), the chain
+    # for maglev (0 too: its code runs inside nf_chain), the full-width
+    # serving run for paged_attention (whose times are those of the
+    # engine's shape; ``batched`` holds the batched shape's, and nf_chain's
+    # ``chain`` the chain path's FW -> NAT -> LB at 2 x 256)
+    main_path = dict.fromkeys(DATAPLANE_KERNELS + INSIDE_CONTROL
+                              + ("acl_match",), "pipes8")
     main_path.update(maglev="chain", paged_attention="serve")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -1365,10 +1576,13 @@ def main() -> int:
             launches_recirc=counts["recirc1"][name],
             launches_chain=counts["chain"][name],
             launches_serve=counts["serve"][name],
-            max_abs_err=err[name], **{k: r[k] for k in keys})
+            max_abs_err=err[name], **{k: r[k] for k in keys},
+            profiler_ms=durations.get(name))
         if name == "paged_attention":
             row["batched"] = {k: paged["batched"][k]
                               for k in keys + ("gather_ms",)}
+        if name == "nf_chain":
+            row["chain"] = {k: times["nf_chain chain"][k] for k in keys}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card)

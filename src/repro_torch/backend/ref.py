@@ -7,7 +7,10 @@ dataplane kernel in ``repro_torch.kernels`` must match its primitive here
 bit-exactly, and every dataplane function accepts leading batch (pipe)
 dimensions.  ``paged_decode_attention`` (the serving side, port of
 ``repro.kernels.paged_attention.ref``) is floating point: its kernel agrees
-within the reference's tolerances (atol 0.02, rtol 0.05).
+within the reference's tolerances (atol 0.02, rtol 0.05).  ``nf_chain`` is
+the NF chain's whole header pass (firewall, NAT, Maglev LB, MAC swap);
+NAT's insert walk (``nat_insert``) is the port's copy of the reference's
+``lax.scan`` over packets.
 
 Index rules follow the reference exactly: a negative index counts from the
 end (``i + n``), an out-of-range read is clamped and an out-of-range write
@@ -16,6 +19,8 @@ is dropped.  ``payload_store``/``payload_fetch`` update ``table`` in place
 return it.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -281,6 +286,226 @@ def merge_stage(table, meta_exp, meta_clk, meta_len, alive, pp_valid,
     # -- stage 3..N: gather payload blocks, then clear the rows ------------
     parked, table = payload_fetch(table, pp_ti, matched)
     return tuple(meta.unbind(-1)), d, parked, table
+
+
+# ---------------------------------------------------------------------------
+# nat_insert / nf_chain — the NF chain's header pass (paper §6.1, §7): the
+# firewall's match, NAT's insert walk and rewrite, the LB's selection and
+# the MAC swap, stage after stage
+# ---------------------------------------------------------------------------
+
+NAT_PROBE_DEPTH = 8
+NF_KINDS = ("fw", "nat", "lb", "macswap")
+# the header fields the four NFs read or write, in the order ``nf_chain``
+# takes and returns them
+NF_FIELDS = ("alive", "src_ip", "dst_ip", "src_port", "dst_port", "proto",
+             "src_mac", "dst_mac")
+# the header fields each kind of stage reads and writes; a field that no
+# stage of a chain writes comes back as the tensor that went in
+NF_READS = {"fw": ("alive", "src_ip"),
+            "nat": ("alive", "src_ip", "src_port"),
+            "lb": ("alive", "src_ip", "dst_ip", "src_port", "dst_port",
+                   "proto"),
+            "macswap": ("alive", "src_mac", "dst_mac")}
+NF_WRITES = {"fw": ("alive",),
+             "nat": ("alive", "src_ip", "src_port"),
+             "lb": ("dst_ip",),
+             "macswap": ("src_mac", "dst_mac")}
+
+
+# NAT's hash constants as the reference writes them, signed int32: the
+# golden ratio 0x9E3779B9 and the multipliers 0x85EBCA6B and 0xC2B2AE3D
+# (the reference's docstring names the murmur3 finalizer's 0xC2B2AE35; the
+# value it uses is 0xC2B2AE3D, and so is the port's); csrc/nf_chain.cu
+# holds the same three literals
+NAT_HASH_CONSTS = (-1640531527, -2048144789, -1028477379)
+
+
+def nat_hash(ip: torch.Tensor, port: torch.Tensor,
+             capacity: int) -> torch.Tensor:
+    """int32 avalanche mix of the flow key; multiplies wrap like uint32,
+    ``>>`` is arithmetic."""
+    seed, mul1, mul2 = NAT_HASH_CONSTS
+    h = ip.to(torch.int32) ^ seed
+    h = (h * mul1) ^ port.to(torch.int32)
+    h = h ^ (h >> 13)
+    h = h * mul2
+    return torch.remainder(h & 0x7FFFFFFF, capacity)
+
+
+def nat_insert(src_ip, src_port, alive, key_ip, key_port, exp, capacity,
+               base_port, max_exp):
+    """NAT's flow-table walk, packet by packet in arrival order, as the
+    reference's ``lax.scan`` runs it.
+
+    Packets (..., B), tables (..., C) int32.  Returns ``(mapped,
+    stale_hit, key_ip, key_port, exp)``: the external port of each packet
+    (``base_port + slot``, -1 when it found no slot or was dead), whether
+    it hit a binding that had aged out, and the new tables (new tensors).
+
+    Each packet reads and writes only its ``NAT_PROBE_DEPTH`` probe slots,
+    which are distinct (capacity >= NAT_PROBE_DEPTH), so one gather and one
+    scatter of the packed (key_ip, key_port, exp) rows cover it for every
+    pipe at once."""
+    cap, depth = capacity, NAT_PROBE_DEPTH
+    dev = src_ip.device
+    ar = torch.arange(depth, device=dev)
+    h = nat_hash(src_ip, src_port, cap)
+    probe = torch.remainder(h[..., None] + ar, cap).to(torch.int64)
+    table = torch.stack([key_ip, key_port, exp], dim=-1)
+
+    def first(cond):
+        """Probe position of the first True, ``depth`` if none."""
+        return torch.where(cond, ar, depth).amin(dim=-1)
+
+    mapped_l, stale_l = [], []
+    for i in range(src_ip.shape[-1]):
+        pidx = probe[..., i, :]
+        gi = pidx[..., None].expand(pidx.shape + (3,))
+        kip, kport, ex = torch.gather(table, -2, gi).unbind(-1)
+        ip = src_ip[..., i, None]
+        port = src_port[..., i, None]
+        live_pkt = alive[..., i]
+        live = ex > 0
+        match = (kip == ip) & (kport == port)
+        p_slot, p_stale, p_free = (first(live & match),
+                                   first(~live & match), first(~live))
+        found = p_slot < depth
+        hit = live_pkt & found
+        # the flow's mapping aged out while it was still sending: the
+        # slot's port may be re-issued already, so count, drop and
+        # tear the dead binding down
+        stale_hit = live_pkt & ~found & (p_stale < depth)
+        can_insert = live_pkt & ~found & ~stale_hit & (p_free < depth)
+        exhausted = live_pkt & ~found & (p_free >= depth)
+        p_w = torch.where(hit, p_slot,
+                          torch.where(stale_hit, p_stale, p_free))
+        at_w = (ar == p_w[..., None]) & \
+            (hit | stale_hit | can_insert)[..., None]
+        ci, sh = can_insert[..., None], stale_hit[..., None]
+        new_ip = torch.where(at_w, torch.where(
+            ci, ip, torch.where(sh, -1, kip)), kip)
+        new_port = torch.where(at_w, torch.where(
+            ci, port, torch.where(sh, -1, kport)), kport)
+        # use refreshes the expiry; CLOCK ages the whole window when a
+        # flow found neither its mapping nor a free slot
+        new_ex = torch.where(at_w & ~sh, max_exp, ex)
+        new_ex = torch.where(exhausted[..., None],
+                             torch.clamp(ex - 1, min=0), new_ex)
+        table.scatter_(-2, gi, torch.stack(
+            [new_ip, new_port, new_ex], dim=-1).to(torch.int32))
+        slot = torch.gather(pidx, -1,
+                            p_w.clamp(max=depth - 1)[..., None])[..., 0]
+        mapped_l.append(torch.where(hit | can_insert, base_port + slot, -1))
+        stale_l.append(stale_hit)
+
+    if mapped_l:
+        mapped = torch.stack(mapped_l, dim=-1).to(torch.int32)
+        stale_hit = torch.stack(stale_l, dim=-1)
+    else:
+        mapped = torch.full_like(src_port, -1)
+        stale_hit = torch.zeros_like(alive)
+    key_ip, key_port, exp = table.unbind(-1)
+    return mapped, stale_hit, key_ip, key_port, exp
+
+
+class FwState(NamedTuple):
+    """A ``fw`` stage's state: the blocked source addresses."""
+
+    rules: torch.Tensor        # (R,)
+
+
+class NatState(NamedTuple):
+    """A ``nat`` stage's state, named as ``Nat``'s state dict is."""
+
+    key_ip: torch.Tensor       # (..., C)
+    key_port: torch.Tensor     # (..., C)
+    exp: torch.Tensor          # (..., C)
+    stale_hits: torch.Tensor   # (...)
+
+
+class NatConsts(NamedTuple):
+    """A ``nat`` stage's constants."""
+
+    nat_ip: int
+    capacity: int
+    base_port: int
+    max_exp: int
+
+
+class LbState(NamedTuple):
+    """An ``lb`` stage's state: ``up`` is None (the live table) or a bool
+    flag, 0-d or one per pipe, that picks the live or the degraded table
+    (``table_down``, None when ``up`` is)."""
+
+    table: torch.Tensor        # (T,)
+    backend_ips: torch.Tensor  # (NB,)
+    table_down: torch.Tensor | None
+    up: torch.Tensor | None
+
+
+class Stage(NamedTuple):
+    """One NF of a chain as ``nf_chain`` takes it: its kind (one of
+    ``NF_KINDS``), its state and its constants: ``FwState`` for ``fw``,
+    ``NatState`` and ``NatConsts`` for ``nat``, ``LbState`` for ``lb``,
+    nothing for ``macswap``."""
+
+    kind: str
+    state: tuple = ()
+    consts: tuple = ()
+
+
+def nf_chain(fields: tuple, stages: tuple):
+    """The header pass of an NF chain: ``fields`` are the ``NF_FIELDS``
+    tensors (..., B), ``stages`` a tuple of ``Stage``, run in order.
+
+    Returns ``(fields, dropped, states)``: the header fields (new tensors
+    for those the stages write, ``NF_WRITES``; the others as they came
+    in), the OR of every stage's drop mask, and each stage's new state (a
+    ``NatState`` of new tensors for NAT; the other kinds' states
+    unchanged)."""
+    alive, src_ip, dst_ip, src_port, dst_port, proto, src_mac, dst_mac = \
+        fields
+    dropped = torch.zeros_like(alive)
+    states = []
+    for st in stages:
+        new_state = st.state
+        if st.kind == "fw":
+            blocked = acl_match(src_ip, st.state.rules)
+            drop = alive & blocked
+            alive = alive & ~blocked
+        elif st.kind == "nat":
+            nat, c = st.state, st.consts
+            mapped, stale_hit, *tables = nat_insert(
+                src_ip, src_port, alive, nat.key_ip, nat.key_port, nat.exp,
+                c.capacity, c.base_port, c.max_exp)
+            ok = alive & (mapped >= 0)
+            drop = alive & (mapped < 0)
+            src_ip = torch.where(ok, c.nat_ip, src_ip).to(torch.int32)
+            src_port = torch.where(ok, mapped, src_port)
+            alive = alive & ~drop
+            new_state = NatState(*tables, (nat.stale_hits + stale_hit.sum(
+                -1)).to(torch.int32))
+        elif st.kind == "lb":
+            lb = st.state
+            table = lb.table
+            if lb.up is not None:
+                table = torch.where(lb.up[..., None], table, lb.table_down)
+            new_dst = maglev_select(src_ip, dst_ip, src_port, dst_port,
+                                    proto, table, lb.backend_ips)
+            dst_ip = torch.where(alive, new_dst, dst_ip)
+            drop = torch.zeros_like(alive)
+        elif st.kind == "macswap":
+            src_mac, dst_mac = (torch.where(alive, dst_mac, src_mac),
+                                torch.where(alive, src_mac, dst_mac))
+            drop = torch.zeros_like(alive)
+        else:
+            raise ValueError(f"unknown NF stage kind {st.kind!r} "
+                             f"(have {NF_KINDS})")
+        dropped = dropped | drop
+        states.append(new_state)
+    return ((alive, src_ip, dst_ip, src_port, dst_port, proto, src_mac,
+             dst_mac), dropped, tuple(states))
 
 
 # ---------------------------------------------------------------------------

@@ -63,6 +63,9 @@ _REGISTRY: dict[str, Primitive] = {
         Primitive("merge_stage", R.merge_stage,
                   _kernel("merge_stage", "merge_stage_cuda"),
                   _kernel("merge_stage", "merge_stage")),
+        Primitive("nf_chain", R.nf_chain,
+                  _kernel("nf_chain", "nf_chain_cuda"),
+                  _kernel("nf_chain", "nf_chain")),
     )
 }
 

@@ -12,15 +12,18 @@
 // of shared memory (T <= 12288, the paper's 251 included) is staged there
 // once per block; a larger one (Maglev's production 65537 is 256 KB, above
 // the 227 KB a block may hold) is read through the read-only cache. The
-// hash runs in uint32_t, so the multiply wraps exactly as the reference's
-// int32 arithmetic; h & 0x7FFFFFFF is non-negative, so % needs no sign fix.
+// hash and the slot are maglev.cuh's, which the NF chain's kernel
+// nf_chain.cu runs too: on the chain's path this standalone kernel no
+// longer launches.
 //
 // Bound: bytes. Each packet reads five int32 fields and writes one (24 B),
 // plus the table and backend list once; the hash is ~10 integer operations
-// per packet, far below the card's integer rate. At the main path's
-// 2 x 256..320 packets a call is a few blocks and costs about a launch.
+// per packet, far below the card's integer rate. At the chain's 2 x
+// 256..320 packets a call is a few blocks and costs about a launch.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "maglev.cuh"
 
 namespace {
 
@@ -47,13 +50,8 @@ __global__ void maglev_kernel(const int32_t* __restrict__ sip,
   const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (j >= b) return;
   const int64_t i = pipe * b + j;
-  uint32_t h = static_cast<uint32_t>(sip[i]);
-  h = h * 1000003u ^ static_cast<uint32_t>(dip[i]);
-  h = h * 1000003u ^ static_cast<uint32_t>(sp[i]);
-  h = h * 1000003u ^ static_cast<uint32_t>(dp[i]);
-  h = h * 1000003u ^ static_cast<uint32_t>(proto[i]);
-  h &= 0x7FFFFFFFu;
-  const uint32_t slot = h % static_cast<uint32_t>(t);
+  const uint32_t slot =
+      pp_maglev_slot(sip[i], dip[i], sp[i], dp[i], proto[i], t);
   const int32_t backend = kStaged ? staged[slot] : __ldg(tab + slot);
   out[i] = __ldg(bips + backend);
 }

@@ -1,7 +1,8 @@
 // A pipe's three (M,) int32 metadata tables (expiry, generation, length)
 // copied into new tensors by one whole block. split_control.cu and
 // merge_stage.cu return new tables, as their plain versions do, and copy
-// them before any probe or free writes a slot.
+// them before any probe or free writes a slot; nf_chain.cu copies NAT's
+// (key_ip, key_port, exp) table into shared memory and out again with it.
 //
 // One block per pipe leaves most of the card idle, so the copy is bound by
 // how many loads a block keeps in flight: every thread loads its share of

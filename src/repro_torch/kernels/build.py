@@ -28,9 +28,9 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("crc16.cu", "acl_match.cu", "payload_store.cu",
            "payload_fetch.cu", "maglev.cu", "paged_attention.cu",
-           "split_control.cu", "merge_stage.cu")
-HEADERS = ("crc16.cuh", "meta_tables.cuh",
-           "payload_fetch.cuh")  # included by the sources
+           "split_control.cu", "merge_stage.cu", "nf_chain.cu")
+HEADERS = ("crc16.cuh", "meta_tables.cuh", "payload_fetch.cuh",
+           "acl_match.cuh", "maglev.cuh")  # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +49,7 @@ SIGNATURES = {
     "pp_split_control": (_vp,) * 20 + (_i64, _i64, _i64, _i64, _i32, _i32,
                                        _i32, _vp),
     "pp_merge_stage": (_vp,) * 21 + (_i64, _i64, _i64, _i64, _i32, _vp),
+    "pp_nf_chain": (_vp,) * 19 + (_i32, _i64, _i64, _i64, _vp),
 }
 
 

@@ -2,10 +2,16 @@
 ``repro.nf.chain``; paper §1 "FW-NAT", §6.2.4, §7 "FW-NAT-LB").
 
 A chain is an ordered tuple of NFs (``Firewall``, ``Nat``, ``MaglevLB``,
-``MacSwap``); each NF is a function
-``(state, pkts) -> (state, pkts, drop_mask, cycles)`` touching headers
-only.  ``to_explicit_drops`` turns chain-dropped, parked packets into
-truncated OP=drop notifications so Merge frees their slots at once.
+``MacSwap``), each touching headers only.  ``run`` turns each NF and its
+state into a stage (``nf.stage(state, ctx)``: kind, state tensors,
+constants) and makes one ``nf_chain`` dispatch for the whole chain: the
+plain version (``backend/ref.py::nf_chain``) on CPU tensors, one launch of
+the CUDA kernel ``csrc/nf_chain.cu`` on the card.  Each NF called alone
+(``NF.__call__``: ``(state, pkts) -> (state, pkts, drop_mask, cycles)``)
+runs a one-stage chain, so there is one code path per NF.  The cycle
+costs are added on the host.  ``to_explicit_drops`` turns chain-dropped,
+parked packets into truncated OP=drop notifications so Merge frees their
+slots at once.
 """
 from __future__ import annotations
 
@@ -13,8 +19,27 @@ import dataclasses
 
 import torch
 
+from repro_torch.backend.ref import NF_FIELDS
+from repro_torch.backend.registry import dispatch
 from repro_torch.core.packet import OP_DROP, PacketBatch, dead_batch
 from repro_torch.device import DEFAULT_DEVICE
+
+
+class NF:
+    """What the four NFs share: calling one runs it as a one-stage chain,
+    and a stateless NF keeps its state.  Each NF also gives ``stage(state,
+    ctx)``, its ``nf_chain`` stage, and ``cycles_of(state)``, its CPU cycle
+    cost per packet."""
+
+    def next_state(self, state, new):
+        """The NF's state after ``nf_chain`` returned ``new`` for it."""
+        return state
+
+    def __call__(self, state, pkts: PacketBatch, backend=None, ctx=None):
+        """``(state, pkts) -> (state, pkts, drop_mask, cycles)``."""
+        (state,), out, drop, cycles = Chain((self,)).run(
+            (state,), pkts, backend=backend, ctx=ctx)
+        return state, out, drop, cycles
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,19 +50,24 @@ class Chain:
                    pipes: int | None = None) -> tuple:
         return tuple(nf.init_state(device, pipes) for nf in self.nfs)
 
+    def stages(self, states: tuple, ctx=None) -> tuple:
+        """The ``nf_chain`` stages of the NFs with these states."""
+        return tuple(nf.stage(st, ctx) for nf, st in zip(self.nfs, states))
+
     def run(self, states: tuple, pkts: PacketBatch, backend=None, ctx=None):
         """Returns (new_states, pkts_out, dropped_by_chain, total_cycles).
-        ``backend`` and the fault-injection ``ctx`` dict are threaded to
-        every NF uniformly."""
-        dropped = torch.zeros_like(pkts.alive)
+        ``backend`` selects the ``nf_chain`` implementation; the
+        fault-injection ``ctx`` dict reaches every NF's stage."""
+        fields, dropped, new = dispatch("nf_chain", backend)(
+            tuple(getattr(pkts, f) for f in NF_FIELDS),
+            self.stages(states, ctx))
         total_cycles = 0.0
         new_states = []
-        for nf, st in zip(self.nfs, states):
-            st, pkts, drop, cycles = nf(st, pkts, backend=backend, ctx=ctx)
-            dropped = dropped | drop
-            total_cycles += cycles
-            new_states.append(st)
-        return tuple(new_states), pkts, dropped, total_cycles
+        for nf, st, s in zip(self.nfs, states, new):
+            total_cycles += nf.cycles_of(st)
+            new_states.append(nf.next_state(st, s))
+        out = pkts.replace(**dict(zip(NF_FIELDS, fields)))
+        return tuple(new_states), out, dropped, total_cycles
 
     def state_counters(self, states: tuple) -> dict:
         """The NF-private counters carried in chain state (e.g. NAT's

@@ -9,10 +9,9 @@ from __future__ import annotations
 
 import dataclasses
 
-import torch
-
-from repro_torch.core.packet import PacketBatch
+from repro_torch.backend.ref import Stage
 from repro_torch.device import DEFAULT_DEVICE
+from repro_torch.nf.chain import NF
 
 NF_LIGHT = 50.0
 NF_MEDIUM = 300.0
@@ -20,16 +19,14 @@ NF_HEAVY = 570.0
 
 
 @dataclasses.dataclass(frozen=True)
-class MacSwap:
+class MacSwap(NF):
     cycles: float = NF_LIGHT
 
     def init_state(self, device=DEFAULT_DEVICE, pipes: int | None = None):
         return ()
 
-    def __call__(self, state, pkts: PacketBatch, backend=None, ctx=None):
-        out = pkts.replace(
-            dst_mac=torch.where(pkts.alive, pkts.src_mac, pkts.dst_mac),
-            src_mac=torch.where(pkts.alive, pkts.dst_mac, pkts.src_mac),
-        )
-        drop = torch.zeros_like(pkts.alive)
-        return state, out, drop, self.cycles
+    def stage(self, state, ctx=None) -> Stage:
+        return Stage("macswap")
+
+    def cycles_of(self, state) -> float:
+        return self.cycles

@@ -5,15 +5,17 @@ The lookup table is built once at configuration time in numpy (the
 permutation fill is sequential; ``_mix64``, ``build_table`` and
 ``degraded_table`` are copies of the reference's).  Per packet the LB
 hashes the 5-tuple, indexes the table and rewrites ``dst_ip`` to the chosen
-backend: the ``maglev_select`` primitive of the backend registry (plain
-version in ``backend/ref.py``, CUDA kernel ``csrc/maglev.cu``).
+backend: the ``lb`` stage of the ``nf_chain`` primitive (plain version
+``backend/ref.py::maglev_select``; on the card the device code of
+``csrc/maglev.cuh`` inside ``csrc/nf_chain.cu``).  Calling a ``MaglevLB``
+runs a one-stage chain.
 
 The table is configuration, not per-pipe state, so ``init_state`` returns
 one (T,) table shared by every pipe.  With a ``fault_target`` the state
 also holds the degraded table, and ``ctx["lb_up"]`` (a 0-d flag in the
-host loop, one flag per pipe in the engine) picks live or degraded: per
-pipe that is a (P, T) table, which both versions of ``maglev_select``
-read row by row.
+host loop, one flag per pipe in the engine) picks live or degraded; the
+stage carries both tables and the flag, and each pipe reads the row its
+flag picks.
 """
 from __future__ import annotations
 
@@ -22,9 +24,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.backend.registry import dispatch
-from repro_torch.core.packet import PacketBatch
+from repro_torch.backend.ref import LbState, Stage
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.nf.chain import NF
 
 CYCLES = 120.0  # hash + table lookup + rewrite
 
@@ -72,7 +74,7 @@ def degraded_table(backends: tuple[int, ...], table_size: int,
 
 
 @dataclasses.dataclass(frozen=True)
-class MaglevLB:
+class MaglevLB(NF):
     backends: tuple[int, ...] = tuple(0x0A000100 + i for i in range(8))
     table_size: int = 251  # small prime; Maglev paper uses 65537 in prod
     # when >= 0, the state also carries the degraded table with this
@@ -98,15 +100,13 @@ class MaglevLB:
                 self.backends, self.table_size, self.fault_target)).to(dev)
         return state
 
-    def __call__(self, state, pkts: PacketBatch, backend=None, ctx=None):
-        table = state["table"]
+    def stage(self, state, ctx=None) -> Stage:
+        table, up = state["table"], None
         if self.fault_target >= 0 and ctx is not None and "lb_up" in ctx:
             up = torch.as_tensor(ctx["lb_up"], device=table.device)
-            table = torch.where(up[..., None], table, state["table_down"])
-        new_dst = dispatch("maglev_select", backend)(
-            pkts.src_ip, pkts.dst_ip, pkts.src_port, pkts.dst_port,
-            pkts.proto, table, state["backend_ips"])
-        out = pkts.replace(
-            dst_ip=torch.where(pkts.alive, new_dst, pkts.dst_ip))
-        drop = torch.zeros_like(pkts.alive)
-        return state, out, drop, CYCLES
+        return Stage("lb", LbState(
+            table=table, backend_ips=state["backend_ips"],
+            table_down=None if up is None else state["table_down"], up=up))
+
+    def cycles_of(self, state) -> float:
+        return CYCLES

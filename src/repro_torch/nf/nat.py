@@ -8,11 +8,14 @@ ages every slot of its probe window (CLOCK).  A flow that returns after
 its slot aged out is counted ``nat_stale_hits``, dropped, and its binding
 torn down.
 
-Inserts run packet by packet in arrival order (two packets of one flow in
-one batch must get the same mapping), as a Python loop of tensor ops over
-all pipes at once.  Each packet reads and writes only its ``PROBE_DEPTH``
-probe slots, which are distinct (capacity >= PROBE_DEPTH), so one gather
-and one scatter of the packed (key_ip, key_port, exp) rows cover it.
+The insert walk runs packet by packet in arrival order (two packets of one
+flow in one batch must get the same mapping).  NAT is one stage of the
+``nf_chain`` primitive: ``Chain.run`` hands it, with the chain's other NFs,
+to one dispatch, whose plain version (``backend/ref.py``: ``nat_insert``,
+then the rewrite) runs on CPU tensors and whose CUDA kernel
+(``csrc/nf_chain.cu``: one block per pipe, the table in shared memory, one
+warp walking the packets) runs on the card.  Calling a ``Nat`` runs a
+one-stage chain.
 """
 from __future__ import annotations
 
@@ -20,26 +23,17 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.packet import PacketBatch
+from repro_torch.backend.ref import NAT_PROBE_DEPTH as PROBE_DEPTH
+from repro_torch.backend.ref import NatConsts, NatState, Stage
+from repro_torch.backend.ref import nat_hash as _hash  # noqa: F401
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.nf.chain import NF
 
-PROBE_DEPTH = 8
 CYCLES = 80.0
 
 
-def _hash(ip: torch.Tensor, port: torch.Tensor, capacity: int) -> torch.Tensor:
-    """int32 avalanche mix of the flow key; multiplies wrap like uint32,
-    ``>>`` is arithmetic.  Constants are the murmur3 finalizer multipliers
-    as signed int32 (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35)."""
-    h = ip.to(torch.int32) ^ -1640531527
-    h = (h * -2048144789) ^ port.to(torch.int32)
-    h = h ^ (h >> 13)
-    h = h * -1028477379
-    return torch.remainder(h & 0x7FFFFFFF, capacity)
-
-
 @dataclasses.dataclass(frozen=True)
-class Nat:
+class Nat(NF):
     nat_ip: int = 0x0A000001  # 10.0.0.1
     capacity: int = 1 << 14   # flow-table slots
     base_port: int = 10000
@@ -73,79 +67,15 @@ class Nat:
         """NF-private counters surfaced through Chain.state_counters."""
         return {"nat_stale_hits": state["stale_hits"]}
 
-    def __call__(self, state, pkts: PacketBatch, backend=None, ctx=None):
-        # header-only table logic; no registry primitive applies, but the
-        # chain threads ``backend``/``ctx`` uniformly through every NF
-        cap, depth = self.capacity, PROBE_DEPTH
-        dev = pkts.device
-        ar = torch.arange(depth, device=dev)
-        h = _hash(pkts.src_ip, pkts.src_port, cap)
-        probe = torch.remainder(h[..., None] + ar, cap).to(torch.int64)
-        table = torch.stack(
-            [state["key_ip"], state["key_port"], state["exp"]], dim=-1)
+    def stage(self, state, ctx=None) -> Stage:
+        return Stage("nat",
+                     NatState(**{k: state[k] for k in NatState._fields}),
+                     NatConsts(nat_ip=self.nat_ip, capacity=self.capacity,
+                               base_port=self.base_port,
+                               max_exp=self.max_exp))
 
-        def first(cond):
-            """Probe position of the first True, ``depth`` if none."""
-            return torch.where(cond, ar, depth).amin(dim=-1)
+    def next_state(self, state, new: NatState) -> dict:
+        return new._asdict()
 
-        mapped_l, stale_l = [], []
-        for i in range(pkts.batch_size):
-            pidx = probe[..., i, :]
-            gi = pidx[..., None].expand(pidx.shape + (3,))
-            kip, kport, ex = torch.gather(table, -2, gi).unbind(-1)
-            ip = pkts.src_ip[..., i, None]
-            port = pkts.src_port[..., i, None]
-            alive = pkts.alive[..., i]
-            live = ex > 0
-            match = (kip == ip) & (kport == port)
-            p_slot, p_stale, p_free = (first(live & match),
-                                       first(~live & match), first(~live))
-            found = p_slot < depth
-            hit = alive & found
-            # the flow's mapping aged out while it was still sending: the
-            # slot's port may be re-issued already, so count, drop and
-            # tear the dead binding down
-            stale_hit = alive & ~found & (p_stale < depth)
-            can_insert = alive & ~found & ~stale_hit & (p_free < depth)
-            exhausted = alive & ~found & (p_free >= depth)
-            p_w = torch.where(hit, p_slot,
-                              torch.where(stale_hit, p_stale, p_free))
-            at_w = (ar == p_w[..., None]) & \
-                (hit | stale_hit | can_insert)[..., None]
-            ci, sh = can_insert[..., None], stale_hit[..., None]
-            new_ip = torch.where(at_w, torch.where(
-                ci, ip, torch.where(sh, -1, kip)), kip)
-            new_port = torch.where(at_w, torch.where(
-                ci, port, torch.where(sh, -1, kport)), kport)
-            # use refreshes the expiry; CLOCK ages the whole window when a
-            # flow found neither its mapping nor a free slot
-            new_ex = torch.where(at_w & ~sh, self.max_exp, ex)
-            new_ex = torch.where(exhausted[..., None],
-                                 torch.clamp(ex - 1, min=0), new_ex)
-            table.scatter_(-2, gi, torch.stack(
-                [new_ip, new_port, new_ex], dim=-1).to(torch.int32))
-            slot = torch.gather(pidx, -1,
-                                p_w.clamp(max=depth - 1)[..., None])[..., 0]
-            mapped_l.append(torch.where(hit | can_insert,
-                                        self.base_port + slot, -1))
-            stale_l.append(stale_hit)
-
-        if mapped_l:
-            mapped = torch.stack(mapped_l, dim=-1).to(torch.int32)
-            stale_hit = torch.stack(stale_l, dim=-1)
-        else:
-            mapped = torch.full_like(pkts.src_port, -1)
-            stale_hit = torch.zeros_like(pkts.alive)
-        ok = pkts.alive & (mapped >= 0)
-        drop = pkts.alive & (mapped < 0)
-        out = pkts.replace(
-            src_ip=torch.where(ok, self.nat_ip, pkts.src_ip).to(torch.int32),
-            src_port=torch.where(ok, mapped, pkts.src_port),
-            alive=pkts.alive & ~drop,
-        )
-        key_ip, key_port, exp = table.unbind(-1)
-        new_state = dict(
-            key_ip=key_ip, key_port=key_port, exp=exp,
-            stale_hits=(state["stale_hits"]
-                        + stale_hit.sum(-1)).to(torch.int32))
-        return new_state, out, drop, CYCLES
+    def cycles_of(self, state) -> float:
+        return CYCLES
