@@ -27,8 +27,14 @@ Phases (any failure raises, so the script exits non-zero):
    flows repeated in a batch, no pipe axis with a 0-d flag, capacity 16384
    (shared memory near full) and 32768 (the walk in device memory), the
    MAC swap alone and a chain of 12 NFs, past the stage limit (two
-   launches).  Each wrapper call must add exactly one launch to its
-   kernel's count (``nf_chain`` one per 8 stages).  Each
+   launches).  Past the one-block limits: ``payload_store`` at 1 pipe x
+   16384 packets (M 4096, W 160, the same row on both sides of the tile
+   boundary) in two launches of at most 12288 packets, and ``merge_stage``
+   at M = 2**20, B = 256 (397568 B of bitmaps and staged rows, in a
+   device-memory scratch) on honest and contested tags, each exact and
+   timed beside its plain version.  Each wrapper call must add exactly one
+   launch to its kernel's count (``nf_chain`` one per 8 stages,
+   ``payload_store`` one per tile).  Each
    kernel is timed (median of 30 launches, CUDA events) beside its plain
    version, one PyTorch library call where one computes the same
    function, and its bound: the larger of the bytes it must move over
@@ -74,15 +80,42 @@ Phases (any failure raises, so the script exits non-zero):
    Gemma-7B through the reference test's lifecycle (admit two, three
    steps, finish, cancel) on the card and on the CPU from the same
    weights: integer stats identical, logits within 0.08.
-7. Traces, after every timed run: the first steps of the 8-pipe run, of
-   each chain group and of a serving prefill, timed untraced and then
-   repeated under ``torch.profiler``, give device kernels per step and the
-   device's busy time against the untraced wall time.  One traced call of
+7. Traces, after the timed runs of phases 2-6: the first steps of the 8-pipe run, of
+   each chain group, of a serving prefill and of a stream segment, timed
+   untraced and then repeated under ``torch.profiler``, give device
+   kernels per step and the device's busy time against the untraced wall
+   time.  One traced call of
    ``split_control``, ``merge_stage``, ``payload_store``, ``nf_chain`` and
    of ``paged_attention`` (engine and batched shapes) must each run
    exactly one device kernel; its duration goes into the kernels line
    (``profiler_ms``).
-8. A ``kernels`` JSON line, the card line, and the final ``ok`` line.
+8. Stream: the streaming driver at the reference streaming bench's full
+   geometry: a ``SyntheticSource`` of 1024 steps x 256 packets (pmax 2048,
+   a 1,000,000-flow pool, diurnal load of period 512, seed 0) through
+   ``run_stream`` (capacity 4096, max_exp 2, recirculation with a 0.25
+   lane, NAT at capacity 16384, window 2, segments of 128, reservoir 4096)
+   on the card.  ``replay_oracle`` over the first 4 segments on the card
+   (streamed = materialized exactly); the first 2 segments of 32 steps on
+   the card and on the CPU identical (counters, telemetry, NF counters,
+   peak occupancy, latency, occupancy segments); the whole run with a
+   positive goodput gain, p50/p99/p999, peak device memory (after a
+   2-segment run) grown by at most one segment's trace, and
+   ``split_control`` / ``merge_stage`` / ``nf_chain`` launched once per
+   Split / Merge / ``Chain.run`` call; then 128 steps in segments of 48,
+   card against CPU, twice: 352-byte rows with the lane (window 2) and
+   160-byte rows without it (window 1).
+9. Adversarial: the ``adversarial`` family at full geometry (11 points:
+   ``exhaust_f{00,25,75}_b{8,64}``, ``churn_{slow,fast}``,
+   ``lb_kill_recover``, ``failover_{drain,drop}``) through ``run_matrix``
+   on the card (backend ``auto``) and on the CPU from the same seed, one
+   call per batched group: per point identical results, identical
+   ``degradation_block``s, every gate ok but the one the reference fails
+   too at this geometry (``KNOWN_FRAGILE_GATES``, reported), and the
+   launches per call of phase 4; ``verify_oracle`` (the host loop on the
+   card) on every card point.
+10. A ``kernels`` JSON line (launches per path, ``launches_stream`` and
+    ``launches_adversarial`` included), the card line, and the final
+    ``ok`` line.
 
 Phase 2 also holds ``paged_attention`` against its plain version within
 the reference's atol 0.02 / rtol 0.05 at the reference's sweep shapes, the
@@ -134,6 +167,14 @@ PROFILE_STEPS = 2  # traced steps of each dataplane trace: each traced
                    # step costs ~24k device kernels of profiler bookkeeping,
                    # and with 4 steps the traces took over half the run
 PROFILE_TOKENS = 8  # traced token steps of the serving prefill
+# the reference streaming bench's full geometry
+# (benchmarks/bench_streaming.py FULL)
+STREAM = dict(steps=1024, chunk=256, pmax=2048, capacity=4096, window=2,
+              segment_len=128, reservoir=4096, flows=1_000_000,
+              load_period=512)
+# degradation gates that the reference fails too on other seeds of the same
+# geometry (ROADMAP C0f): reported, not required
+KNOWN_FRAGILE_GATES = (("failover_drain", "recovery_steps"),)
 CRC16_TPU = "src/repro/kernels/crc16/kernel.py:40"
 FETCH_TPU = "src/repro/kernels/payload_fetch/kernel.py:49"
 REPLACES = {
@@ -349,6 +390,9 @@ def check_kernels(dev) -> dict:
                 R.maglev_select(*fields, table, bips)))
     err["split_control"], err["merge_stage"] = check_control(gen, dev)
     err["nf_chain"] = check_nf_chain(gen, dev)
+    big = check_past_limits(gen, dev)
+    for name, r in big.items():
+        err[name] = max(err[name], r.pop("max_abs_err"))
     torch.cuda.synchronize()
     print("kernels vs plain: exact on every case, one launch per call "
           "(B 256/264, W 160/352, R 1/20, duplicates, masked, out of range, "
@@ -356,7 +400,101 @@ def check_kernels(dev) -> dict:
           "2x256/2x320/1x264, shared and per-pipe tables of 251 and 65537, "
           "dead rows; split_control, merge_stage and nf_chain as listed "
           "above)")
-    return err
+    return err, big
+
+
+def tiled_store_inputs(gen, b, m, w, dev):
+    """``payload_store``'s arguments for one pipe of ``b`` packets past
+    ``MAX_PACKETS`` (rows drawn with repeats, 70 % enabled), with the same
+    row named on both sides of each tile boundary: by the boundary's last
+    and first packets, and by packets 8 before and 2 after it."""
+    from repro_torch.kernels.payload_store import MAX_PACKETS
+    table = torch.randint(0, 256, (1, m, w), generator=gen, dtype=torch.uint8)
+    payload = torch.randint(0, 256, (1, b, w), generator=gen,
+                            dtype=torch.uint8)
+    idx = torch.randint(0, m, (1, b), generator=gen, dtype=torch.int32)
+    enb = torch.rand((1, b), generator=gen) < 0.7
+    for edge in range(MAX_PACKETS, b, MAX_PACKETS):
+        for before, after in ((edge - 1, edge), (edge - 8, edge + 2)):
+            idx[0, after] = idx[0, before]
+            enb[0, [before, after]] = True
+    return [x.to(dev) for x in (table, payload, idx, enb)]
+
+
+def check_past_limits(gen, dev) -> dict:
+    """Phase 2 past the kernels' one-block limits (the sizes that raised
+    before): ``payload_store`` at 1 pipe x 16384 packets, M 4096, W 160 in
+    consecutive tiles of ``MAX_PACKETS`` (two launches a call), and
+    ``merge_stage`` at M = 2**20, B = 256 (12 M / 32 + 17 B = 397568 B of
+    bitmaps and staged rows, past the 227 KB of shared memory, so in a
+    device-memory scratch; one launch a call) on honest and contested
+    tags.  Each exact against its plain version, timed beside it."""
+    from repro_torch.backend import ref as R
+    from repro_torch.kernels import launch_counts, merge_stage
+    from repro_torch.kernels import payload_store as PS
+
+    rows = {}
+    b, m, w = 16384, 4096, 160
+    t, p, i, e = tiled_store_inputs(gen, b, m, w, dev)
+    tiles = -(-b // PS.MAX_PACKETS)
+    before = launch_counts()["payload_store"]
+    got = PS.payload_store_cuda(t.clone(), p, i, e)
+    launches = launch_counts()["payload_store"] - before
+    if launches != tiles:
+        raise AssertionError(f"payload_store 1x{b}: {launches} launches, "
+                             f"not {tiles} tiles")
+    err = must_equal(f"payload_store 1x{b}x{w} in {tiles} tiles", got,
+                     R.payload_store(t.clone(), p, i, e))
+    # rows drawn with repeats: each distinct enabled row is written once,
+    # from its last writer's payload, whatever the number of writers
+    written = int(torch.unique(i[e]).numel())
+    rows["payload_store"] = dict(
+        max_abs_err=err, shape=f"1 x {b}, M {m}, W {w}", launches=tiles,
+        ms=device_ms(lambda: PS.payload_store_cuda(t, p, i, e)),
+        plain_ms=device_ms(lambda: R.payload_store(t, p, i, e), reps=5),
+        bound_bytes=written * w * 2 + b * 5, bound_ops=0)
+    print(f"payload_store 1x{b}x{w}, M {m}: exact in {tiles} launches "
+          f"(duplicate rows across each tile boundary)")
+
+    m, b = 1 << 20, 256
+    if merge_stage.shared_bytes(b, m) <= merge_stage.MAX_SHARED:
+        raise AssertionError("merge_stage case does not pass the limit")
+    err = 0
+    for label, corrupt in (("honest", False), ("contested", True)):
+        margs = merge_args(gen, (1,), b, m, w, dev, corrupt)
+        got = once("merge_stage", merge_stage.merge_stage_cuda,
+                   margs[0].clone(), *margs[1:])
+        want = R.merge_stage(margs[0].clone(), *margs[1:])
+        err = max(err, same_all(f"merge_stage 1x{b} M {m} {label}", got,
+                                want))
+        if corrupt and not bool(want[1]["matched"][..., 7].all()):
+            raise AssertionError("merge_stage M 2**20: the second match "
+                                 "after a free did not match")
+        print(f"merge_stage 1x{b}, M {m} ({merge_stage.shared_bytes(b, m)} B "
+              f"in device memory), {label} tags: exact, one launch")
+    matched = int(want[1]["matched"].sum())
+    rows["merge_stage"] = dict(
+        max_abs_err=err, shape=f"1 x {b}, M {m}, W {w}, contested tags",
+        launches=1,
+        ms=device_ms(lambda: merge_stage.merge_stage_cuda(*margs)),
+        plain_ms=device_ms(lambda: R.merge_stage(*margs), reps=5),
+        bound_bytes=24 * m + b * 31 + b * w + matched * w * 2,
+        bound_ops=b * CRC16_OPS)
+    for name, r in rows.items():
+        bound(r)
+        print(f"time {name} {r['shape']}: kernel {r['ms']:.6f} ms in "
+              f"{r['launches']} launch(es), plain {r['plain_ms']:.6f} ms, "
+              f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}")
+    return rows
+
+
+def bound(r: dict, ops_per_s: float = FP32_OPS_PER_S) -> None:
+    """``bound_ms`` and ``bound_by`` of a timing row from its bytes and
+    operations."""
+    by_bytes = r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+    by_ops = r["bound_ops"] / ops_per_s * 1e3
+    r["bound_ms"] = max(by_bytes, by_ops)
+    r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
 
 
 def leaves(out) -> list:
@@ -758,10 +896,7 @@ def time_kernels(dev) -> dict:
             plain_ms=device_ms(lambda: R.nf_chain(nf_fields, stages)),
             library_ms=None, **nf_chain_bound(nf_fields, stages))
     for name, r in rows.items():
-        by_bytes = r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
-        by_ops = r["bound_ops"] / FP32_OPS_PER_S * 1e3
-        r["bound_ms"] = max(by_bytes, by_ops)
-        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        bound(r)
         print(f"time {name}: kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f}"
               f" ms, library {r['library_ms']} ms, bound {r['bound_ms']:.6f}"
               f" ms by {r['bound_by']} ({r['bound_bytes']} bytes, "
@@ -1136,6 +1271,228 @@ def chain_phase(dev):
 
 
 # --------------------------------------------------------------------------
+# the streaming driver at the streaming bench's full geometry
+# --------------------------------------------------------------------------
+
+def same_stream(label: str, a, b) -> None:
+    for what in ("counters", "telemetry", "nf_counters", "peak_occupancy",
+                 "latency", "occ_segments", "steps", "segments"):
+        same(f"{label} {what}", getattr(a, what), getattr(b, what))
+
+
+def stream_setup():
+    """The stream's ParkConfig, chain, source and ``run_stream`` keywords at
+    ``STREAM``'s geometry."""
+    from repro_torch.core.park import ParkConfig
+    from repro_torch.nf.chain import Chain
+    from repro_torch.nf.nat import Nat
+    from repro_torch.traffic.stream import DiurnalLoad, SyntheticSource
+
+    g = STREAM
+    cfg = ParkConfig(capacity=g["capacity"], max_exp=2, pmax=g["pmax"],
+                     recirculation=True, recirc_frac=0.25)
+    source = SyntheticSource(steps=g["steps"], chunk=g["chunk"],
+                             pmax=g["pmax"], seed=0, flows=g["flows"],
+                             load=DiurnalLoad(period=g["load_period"]))
+    kw = dict(window=g["window"], reservoir=g["reservoir"], backend="auto")
+    return cfg, Chain((Nat(),)), source, kw
+
+
+def stream_traced() -> list:
+    """The first steps of one stream segment, to be traced."""
+    import dataclasses
+
+    from repro_torch.switchsim.stream import run_stream
+
+    cfg, chain, source, kw = stream_setup()
+    head = dataclasses.replace(source, steps=PROFILE_STEPS)
+    return [("stream segment", lambda d: run_stream(
+        cfg, chain, head, segment_len=PROFILE_STEPS, device=d, **kw),
+        PROFILE_STEPS + STREAM["window"] + 1)]
+
+
+def stream_phase(dev):
+    """The stream phase.  Returns the launch counts of the full card run."""
+    import dataclasses
+
+    from repro_torch.core.packet import FIELDS
+    from repro_torch.core.park import ParkConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.nf.nat import Nat
+    from repro_torch.switchsim.engine import goodput_gain_from_telemetry
+    from repro_torch.switchsim.stream import replay_oracle, run_stream
+
+    g = STREAM
+    cfg, chain, source, kw = stream_setup()
+
+    def prefix(steps, src=source):
+        return dataclasses.replace(src, steps=steps)
+
+    print(f"stream: {g['steps']} steps x chunk {g['chunk']} "
+          f"({g['steps'] * g['chunk']} packets), pmax {g['pmax']}, "
+          f"{g['flows']}-flow pool, diurnal period {g['load_period']}; "
+          f"capacity {g['capacity']}, max_exp 2, recirculation (352 B rows, "
+          f"lane 0.25), NAT at capacity {Nat().capacity}, window "
+          f"{g['window']}, segment {g['segment_len']}, reservoir "
+          f"{g['reservoir']}")
+    # 1. the segment replay on the card: the stream equals the engine
+    t0 = time.perf_counter()
+    rep = replay_oracle(cfg, chain, source, window=g["window"],
+                        segment_len=g["segment_len"], segments=4,
+                        backend="auto", device=dev)
+    print(f"stream replay_oracle on the card: {rep['segments']} segments, "
+          f"{rep['steps']} steps, {rep['packets']} packets: streamed = "
+          f"materialized exactly ({time.perf_counter() - t0:.1f} s)")
+    # 2. the first two 32-step segments, card against CPU
+    short = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        short[str(d)] = run_stream(cfg, chain, prefix(64), segment_len=32,
+                                   device=d, **kw)
+        print(f"stream 2 x 32 steps on {d}: {time.perf_counter() - t0:.3f} s")
+    same_stream("stream 2 x 32", short[str(dev)], short["cpu"])
+    # 3. constant memory and the whole run, counting the launches
+    seg_bytes = sum(
+        g["segment_len"] * g["chunk"]
+        * (g["pmax"] if n == "payload" else 1 if n in ("alive", "pp_valid")
+           else 4) for n in FIELDS)
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    run_stream(cfg, chain, prefix(2 * g["segment_len"]),
+               segment_len=g["segment_len"], device=dev, **kw)
+    sync(dev)
+    peak2 = torch.cuda.max_memory_allocated(dev) - base
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    with path_calls() as calls:
+        t0 = time.perf_counter()
+        res = run_stream(cfg, chain, source, segment_len=g["segment_len"],
+                         device=dev, **kw)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    if peak - peak2 > seg_bytes:
+        raise AssertionError(f"stream: peak device memory grew {peak - peak2}"
+                             f" B from 2 segments to {res.segments}, more "
+                             f"than one segment's trace ({seg_bytes} B)")
+    gain = goodput_gain_from_telemetry(res.telemetry)["goodput_gain"]
+    lat = res.latency
+    if not gain > 0 or not all(k in lat for k in ("p50_us", "p99_us",
+                                                   "p999_us")):
+        raise AssertionError(f"stream: gain {gain}, latency {lat}")
+    check_launches("stream", counts, calls, DATAPLANE_KERNELS)
+    print(f"stream {res.steps} steps on the card: {wall:.3f} s, "
+          f"{res.steps / wall:.1f} steps/s, {res.telemetry.wire_pkts / wall:.1f}"
+          f" offered pkt/s ({res.telemetry.wire_pkts} offered); goodput_gain "
+          f"{gain:.6f}; latency p50 {lat['p50_us']} us, p99 {lat['p99_us']} "
+          f"us, p999 {lat['p999_us']} us ({lat['samples']} samples); peak "
+          f"occupancy {res.peak_occupancy}; peak device memory {peak} B "
+          f"({peak2} B over 2 segments, one segment's trace {seg_bytes} B); "
+          f"counters {res.counters}, nf {res.nf_counters}; launches {counts} "
+          f"for {calls}")
+    # two more streams of 128 steps in segments of 48 (a ragged last one),
+    # card against CPU: 352-byte rows with the lane, window 2, and
+    # 160-byte rows without it, window 1
+    cfg160 = ParkConfig(capacity=g["capacity"], max_exp=2, pmax=g["pmax"])
+    for label, c, window in (("352 B rows, lane", cfg, g["window"]),
+                             ("160 B rows", cfg160, 1)):
+        second = {}
+        for d in (dev, "cpu"):
+            t0 = time.perf_counter()
+            second[str(d)] = run_stream(c, chain, prefix(128), window=window,
+                                        segment_len=48,
+                                        reservoir=g["reservoir"],
+                                        backend="auto", device=d)
+            print(f"stream 128 steps, {label}, window {window}, segments of "
+                  f"48 on {d}: {time.perf_counter() - t0:.3f} s")
+        same_stream(f"stream {label}", second[str(dev)], second["cpu"])
+    print("stream: card runs identical to the CPU runs (counters, telemetry, "
+          "nf_counters, peak occupancy, latency, occupancy segments)")
+    return counts
+
+
+# --------------------------------------------------------------------------
+# the adversarial family with its degradation gates
+# --------------------------------------------------------------------------
+
+def adversarial_phase(dev):
+    """The adversarial phase.  Returns the launch counts of the card run."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.scenarios import (compile_key, degradation_block,
+                                       family, prepare, run_matrix,
+                                       verify_oracle)
+
+    specs = family("adversarial")
+    groups: dict = {}
+    for s in specs:
+        p = prepare(s)
+        groups.setdefault(compile_key(s, p.chain, p.steps), []).append(s)
+    groups = list(groups.values())
+    print(f"adversarial: {len(specs)} points in {len(groups)} groups "
+          f"{[[x.name for x in m] for m in groups]}")
+
+    def run_groups(d):
+        out, walls = {}, []
+        for members in groups:
+            sync(d)
+            t0 = time.perf_counter()
+            res = run_matrix(members, device=d)
+            sync(d)
+            walls.append(time.perf_counter() - t0)
+            if [r.group_size for r in res] != [len(members)] * len(members):
+                raise AssertionError(f"adversarial: {[m.name for m in members]}"
+                                     " did not batch into one run_pipes call")
+            out.update((r.spec.name, r) for r in res)
+        return out, walls
+
+    sync(dev)
+    reset_launch_counts()
+    with path_calls() as calls:
+        gpu, gpu_walls = run_groups(dev)
+    counts = launch_counts()
+    cpu, cpu_walls = run_groups("cpu")
+    for name in gpu:
+        same_point(f"adversarial {name}", gpu[name], cpu[name])
+    block = degradation_block([gpu[s.name] for s in specs])
+    same("adversarial degradation block", block,
+         degradation_block([cpu[s.name] for s in specs]))
+    # the host loop, pipe by pipe on the card, against each card point
+    t0 = time.perf_counter()
+    for s in specs:
+        verify_oracle(gpu[s.name], device=dev)
+    oracle_s = time.perf_counter() - t0
+    failed = sorted((name, g["metric"]) for name, sc in
+                    block["scenarios"].items() for g in sc["gates"]
+                    if not g["ok"])
+    for name, sc in block["scenarios"].items():
+        print(f"adversarial {name}: {sc['metrics']}, gates "
+              + ", ".join(f"{g['metric']} {g['op']} {g['bound']}: "
+                          f"{'ok' if g['ok'] else 'FAILS'}"
+                          for g in sc["gates"]))
+    # the failover_drain recovery gate compares the victim pipe's
+    # occupancy after the fault with one sample before it; at this
+    # geometry the reference itself fails it on 4 of seeds 0-5 (ROADMAP
+    # C0f), and on the reference's own full-geometry traffic the port gives
+    # the reference's value (tests/test_torch_adversarial.py), so it is
+    # reported here and every other gate must hold
+    if [f for f in failed if f not in KNOWN_FRAGILE_GATES]:
+        raise AssertionError(f"adversarial: degradation gates fail: {failed}")
+    print(f"adversarial: every point identical card vs CPU, degradation "
+          f"blocks identical; the host-loop oracle holding on every card "
+          f"point ({oracle_s:.1f} s); block ok {block['ok']}, failing gates "
+          f"{failed or 'none'}")
+    for members, gw, cw in zip(groups, gpu_walls, cpu_walls):
+        offered = sum(gpu[m.name].telemetry.wire_pkts for m in members)
+        print(f"adversarial group {[m.name for m in members]}: card "
+              f"{gw:.3f} s ({offered / gw:.1f} offered pkt/s), CPU {cw:.3f} s")
+    print(f"adversarial launches on the card: {counts} for {calls}")
+    check_launches("adversarial", counts, calls, DATAPLANE_KERNELS)
+    return counts
+
+
+# --------------------------------------------------------------------------
 # phase 2, serving side: paged attention against its plain version
 # --------------------------------------------------------------------------
 
@@ -1318,10 +1675,7 @@ def time_paged(dev) -> dict:
                 qs, k, v, attn_mask=mask, enable_gqa=True)),
             gather_ms=device_ms(gather),
             **paged_bound(q, kp, pt, ln))
-        by_bytes = r["bound_bytes"] / HBM_BYTES_PER_S * 1e3
-        by_ops = r["bound_ops"] / BF16_FLOP_PER_S * 1e3
-        r["bound_ms"] = max(by_bytes, by_ops)
-        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        bound(r, BF16_FLOP_PER_S)
         rows[name] = r
         print(f"time paged_attention {name} (B, K, G, E) = {tuple(q.shape)}, "
               f"page {page}, MP {mp}, {int(ln.sum())} live tokens: kernel "
@@ -1533,7 +1887,7 @@ def main() -> int:
     print((build.BUILD_DIR / "build.log").read_text()
           if (build.BUILD_DIR / "build.log").exists() else "build: cached")
 
-    err = check_kernels(dev)
+    err, big = check_kernels(dev)
     err["paged_attention"] = check_paged(dev)
     times = time_kernels(dev)
     paged = time_paged(dev)
@@ -1546,12 +1900,19 @@ def main() -> int:
     stamp("phase 5 (chain)")
     counts["serve"], serve_traced = serve_phase(dev)
     stamp("phase 6 (serving)")
-    # phase 7, after every timed run: a torch.profiler session slows the
-    # launches that follow it in the same process
+    # phase 7, after the timed runs of phases 2-6 (a torch.profiler session
+    # slows the launches that follow it in the same process) and before
+    # the stream and adversarial phases (after them, the profiles here
+    # have recorded no device event)
     durations = one_kernel_per_call(dev)
-    for label, run, steps in traced + chain_traced + serve_traced:
+    for label, run, steps in (traced + chain_traced + serve_traced
+                              + stream_traced()):
         profile_steps(label, run, dev, steps)
     stamp("phase 7 (traces)")
+    counts["stream"] = stream_phase(dev)
+    stamp("stream phase")
+    counts["adversarial"] = adversarial_phase(dev)
+    stamp("adversarial phase")
 
     # ``launches`` is the count on the kernel's own main path: pipes8 for
     # the Split -> FW -> NAT -> Merge kernels (0 for crc16 and
@@ -1576,8 +1937,13 @@ def main() -> int:
             launches_recirc=counts["recirc1"][name],
             launches_chain=counts["chain"][name],
             launches_serve=counts["serve"][name],
+            launches_stream=counts["stream"][name],
+            launches_adversarial=counts["adversarial"][name],
             max_abs_err=err[name], **{k: r[k] for k in keys},
             profiler_ms=durations.get(name))
+        if name in big:  # past the one-block limits (phase 2)
+            row["past_limit"] = {k: big[name][k] for k in
+                                 keys[:-1] + ("shape", "launches")}
         if name == "paged_attention":
             row["batched"] = {k: paged["batched"][k]
                               for k in keys + ("gather_ms",)}

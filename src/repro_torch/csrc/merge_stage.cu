@@ -33,6 +33,11 @@
 //
 // Shared memory (dynamic): three bitmaps of M bits and 17 bytes a packet
 // (its slot, the staged generation, length and pp_clk, and its flags).
+// Past the block's 227 KB (a table past ~620,000 slots, or a batch past
+// ~13,600 packets) the same layout lives in a device-memory scratch
+// tensor, one region a pipe, and the block works there: the kernel zeroes
+// the bitmaps itself, atomics and barriers order it as in shared memory,
+// and every trip to it costs a device-memory access instead.
 //
 // Bound: bytes. Per pipe the three (M,) int32 tables are read and written
 // once (12 M bytes each way); each packet reads 22 bytes of header and
@@ -77,7 +82,8 @@ struct MergeArgs {
   uint8_t* is_drop;
   int32_t* park_len;
   uint8_t* parked;  // (P, B, W)
-  int64_t b, m, width;
+  uint32_t* scratch;  // (P, scratch_words) past the shared memory, or null
+  int64_t b, m, width, scratch_words;
   int32_t op_drop;
 };
 
@@ -87,9 +93,10 @@ __host__ __device__ __forceinline__ int64_t bitmap_words(int64_t m) {
 
 __global__ void __launch_bounds__(kThreads)
     merge_stage_kernel(const MergeArgs a) {
-  extern __shared__ uint32_t smem[];
+  extern __shared__ uint32_t shared[];
   const int tid = threadIdx.x;
   const int64_t p = blockIdx.x;
+  uint32_t* const smem = a.scratch ? a.scratch + p * a.scratch_words : shared;
   const int64_t b = a.b;
   const int64_t m = a.m;
   const int64_t pb = p * b;
@@ -193,10 +200,14 @@ __global__ void __launch_bounds__(kThreads)
                     });
 }
 
-// Dynamic shared memory of one block (kernels/merge_stage.py keeps it
-// within the block's 227 KB).
+// The bytes of one block's bitmaps and staged rows (kernels/merge_stage.py
+// passes a scratch tensor of P x scratch_words(b, m) words past 227 KB).
 size_t shared_bytes(int64_t b, int64_t m) {
   return static_cast<size_t>(12 * bitmap_words(m) + 17 * b);
+}
+
+int64_t scratch_words(int64_t b, int64_t m) {
+  return static_cast<int64_t>((shared_bytes(b, m) + 15) / 16) * 4;
 }
 
 }  // namespace
@@ -209,7 +220,7 @@ extern "C" int pp_merge_stage(
     void* meta_clk_out, void* meta_len_out, void* matched, void* premature,
     void* crc_fail, void* disabled, void* is_drop, void* park_len,
     void* parked, int64_t pipes, int64_t b, int64_t m, int64_t width,
-    int op_drop, void* stream) {
+    int op_drop, void* scratch, void* stream) {
   MergeArgs a;
   a.table = static_cast<uint8_t*>(table);
   a.exp_in = static_cast<const int32_t*>(meta_exp);
@@ -236,7 +247,9 @@ extern "C" int pp_merge_stage(
   a.m = m;
   a.width = width;
   a.op_drop = op_drop;
-  const size_t shared = shared_bytes(b, m);
+  a.scratch = static_cast<uint32_t*>(scratch);
+  a.scratch_words = scratch_words(b, m);
+  const size_t shared = scratch ? 0 : shared_bytes(b, m);
   if (shared > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         merge_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -12,7 +12,11 @@
 // run in, in one launch and without scratch.
 //
 // Grid (ceil(B / 8), P), 256 threads: one warp per packet, 8 packets per
-// block. Each block first stages its pipe's target rows for the packets
+// block. A launch covers B consecutive packets of each pipe, whose arrays
+// hold ``stride`` packets a pipe: the wrapper (kernels/payload_store.py)
+// launches a batch past the block's shared memory as consecutive tiles of
+// at most 12288 packets, in arrival order on one stream, so a later tile's
+// writer overwrites an earlier tile's, as the sequential kernel does. Each block first stages its pipe's target rows for the packets
 // from its first packet to B - 1 into shared memory as int32 (-1 for a
 // disabled packet or a row out of range). A packet's warp then scans the
 // later packets' rows 32 at a time with __any_sync and, if none matches,
@@ -42,13 +46,13 @@ __global__ void __launch_bounds__(kThreads)
                          const uint8_t* __restrict__ payload,
                          const int32_t* __restrict__ idx,
                          const uint8_t* __restrict__ enb, int64_t b,
-                         int64_t m, int64_t width) {
+                         int64_t stride, int64_t m, int64_t width) {
   extern __shared__ int32_t rows[];  // rows of packets first .. b - 1
   const int64_t p = blockIdx.y;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kWarps;
   const int n = static_cast<int>(b - first);
-  const int32_t* ip = idx + p * b + first;
-  const uint8_t* ep = enb + p * b + first;
+  const int32_t* ip = idx + p * stride + first;
+  const uint8_t* ep = enb + p * stride + first;
   for (int i = threadIdx.x; i < n; i += kThreads) {
     int64_t r = ip[i];
     if (r < 0) r += m;
@@ -68,7 +72,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int64_t vecs = width / 16;
   const int4* src =
-      reinterpret_cast<const int4*>(payload + (p * b + first + warp) * width);
+      reinterpret_cast<const int4*>(payload + (p * stride + first + warp) *
+                                               width);
   int4* dst = reinterpret_cast<int4*>(table + (p * m + row) * width);
   for (int64_t v = lane; v < vecs; v += 32) dst[v] = src[v];
 }
@@ -76,11 +81,12 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // The caller keeps b within the shared memory of a block (4 bytes a packet,
-// 48 KB) and m below 2**31.
+// 48 KB) and m below 2**31; payload, idx and enb hold ``stride`` packets a
+// pipe, of which this call stores the first b (the pointers name a tile).
 extern "C" int pp_payload_store(void* table, const void* payload,
                                 const void* idx, const void* enb,
-                                int64_t pipes, int64_t b, int64_t m,
-                                int64_t width, void* stream) {
+                                int64_t pipes, int64_t b, int64_t stride,
+                                int64_t m, int64_t width, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>((b + kWarps - 1) / kWarps),
                   static_cast<unsigned>(pipes));
@@ -88,6 +94,6 @@ extern "C" int pp_payload_store(void* table, const void* payload,
   payload_store_kernel<<<grid, kThreads, shared, s>>>(
       static_cast<uint8_t*>(table), static_cast<const uint8_t*>(payload),
       static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(enb), b,
-      m, width);
+      stride, m, width);
   return static_cast<int>(cudaGetLastError());
 }

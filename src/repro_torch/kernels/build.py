@@ -39,7 +39,8 @@ _vp, _i64, _i32, _f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 SIGNATURES = {
     "pp_crc16_tag": (_vp, _vp, _vp, _i64, _vp),
     "pp_acl_match": (_vp, _vp, _vp, _i64, _i32, _vp),
-    "pp_payload_store": (_vp, _vp, _vp, _vp, _i64, _i64, _i64, _i64, _vp),
+    "pp_payload_store": (_vp, _vp, _vp, _vp, _i64, _i64, _i64, _i64, _i64,
+                         _vp),
     "pp_payload_fetch": (_vp, _vp, _vp, _vp, _i64, _i64, _i64, _i64, _vp),
     "pp_maglev_select": (_vp, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _vp, _vp,
                          _i64, _i64, _vp),
@@ -48,7 +49,8 @@ SIGNATURES = {
                            _i32, _i32, _i32, _f32, _vp),
     "pp_split_control": (_vp,) * 20 + (_i64, _i64, _i64, _i64, _i32, _i32,
                                        _i32, _vp),
-    "pp_merge_stage": (_vp,) * 21 + (_i64, _i64, _i64, _i64, _i32, _vp),
+    "pp_merge_stage": (_vp,) * 21 + (_i64, _i64, _i64, _i64, _i32, _vp,
+                                     _vp),
     "pp_nf_chain": (_vp,) * 19 + (_i32, _i64, _i64, _i64, _vp),
 }
 

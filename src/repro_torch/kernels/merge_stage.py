@@ -2,16 +2,21 @@
 
 Merge's whole control pass in one launch, one block per pipe: the tag CRC
 check of ``csrc/crc16.cuh``, the metadata validate/free pass in arrival
-order over rows staged in shared memory (in parallel for packets alone
-on their slot, by one lane with a bitmap of freed slots for packets that
-share one) and the gather-then-clear of
-``csrc/payload_fetch.cuh``.  On Merge's path it
-stands for the TPU kernels ``repro/kernels/crc16/kernel.py::crc16_kernel``
-and ``repro/kernels/payload_fetch/kernel.py::payload_fetch_kernel`` and
-for the reference's ``lax.scan`` control pass.  Bound by bytes: the
-metadata tables read and written once, the header fields read and the
-decisions written once, each matched row read and cleared once and the
-output rows written once.
+order over rows staged in shared memory (in parallel for packets alone on
+their slot, by one lane with a bitmap of freed slots for packets that
+share one) and the gather-then-clear of ``csrc/payload_fetch.cuh``.  On
+Merge's path it stands for the TPU kernels
+``repro/kernels/crc16/kernel.py::crc16_kernel`` and
+``repro/kernels/payload_fetch/kernel.py::payload_fetch_kernel`` and for
+the reference's ``lax.scan`` control pass.  Bound by bytes: the metadata
+tables read and written once, the header fields read and the decisions
+written once, each matched row read and cleared once and the output rows
+written once.
+
+The bitmaps and staged rows take ``shared_bytes(B, M)`` bytes a pipe.
+Past ``MAX_SHARED`` they live in a device-memory scratch tensor of
+``scratch_words(B, M)`` int32 words a pipe and the same kernel works
+there, so every size the reference accepts runs in one launch.
 
 ``merge_stage_cuda`` launches the kernel and raises on CPU tensors;
 ``merge_stage`` is the ``auto`` entry, which takes the plain version
@@ -39,7 +44,7 @@ DECISIONS = (("matched", torch.bool), ("premature", torch.bool),
              ("is_drop_op", torch.bool), ("park_len", torch.int32))
 
 __all__ = ["COUNT", "MAX_SHARED", "merge_stage", "merge_stage_cuda",
-           "merge_stage_plain", "shared_bytes"]
+           "merge_stage_plain", "scratch_words", "shared_bytes"]
 
 
 def shared_bytes(b: int, m: int) -> int:
@@ -48,14 +53,19 @@ def shared_bytes(b: int, m: int) -> int:
     return 12 * ((m + 31) // 32) + 17 * b
 
 
+def scratch_words(b: int, m: int) -> int:
+    """int32 words of one pipe's region of the device-memory scratch that
+    takes the shared memory's place past ``MAX_SHARED`` (16-byte aligned)."""
+    return -(-shared_bytes(b, m) // 16) * 4
+
+
 def merge_stage_cuda(table, meta_exp, meta_clk, meta_len, alive, pp_valid,
                      pp_enb, pp_op, pp_ti, pp_clk, pp_crc):
     """table (..., M, W) uint8 with W a multiple of 16, updated in place;
     metadata (..., M) int32; header fields (..., B), on the card.  Returns
     ``((meta_exp, meta_clk, meta_len), d, parked (..., B, W), table)`` as
-    ``merge_stage_plain`` does.  Shapes are checked before devices, so a
-    batch past the block's shared memory raises ``ValueError`` wherever
-    the tensors lie."""
+    ``merge_stage_plain`` does.  Past ``MAX_SHARED`` bytes of bitmaps and
+    staged rows the kernel works in a device-memory scratch tensor."""
     *lead, m, w = table.shape
     b = alive.shape[-1]
     header = (alive, pp_valid, pp_enb, pp_op, pp_ti, pp_clk, pp_crc)
@@ -73,10 +83,6 @@ def merge_stage_cuda(table, meta_exp, meta_clk, meta_len, alive, pp_valid,
                          "of 16")
     if m >= 1 << 31:
         raise ValueError(f"merge_stage: {m} table rows do not fit int32")
-    if shared_bytes(b, m) > MAX_SHARED:
-        raise ValueError(f"merge_stage: {b} packets and {m} rows per pipe "
-                         f"overflow the block's shared memory "
-                         f"({shared_bytes(b, m)} > {MAX_SHARED} bytes)")
     dev = require_cuda("merge_stage", table, meta_exp, meta_clk, meta_len,
                        *header)
     meta = [t.to(torch.int32).contiguous()
@@ -93,11 +99,16 @@ def merge_stage_cuda(table, meta_exp, meta_clk, meta_len, alive, pp_valid,
     pipes = math.prod(lead)
     if pipes == 0 or b == 0:  # nothing returns: the tables stand
         return tuple(meta), d, parked, table
+    scratch = None
+    if shared_bytes(b, m) > MAX_SHARED:
+        scratch = torch.empty((pipes, scratch_words(b, m)),
+                              dtype=torch.int32, device=dev)
     rc = library().pp_merge_stage(
         table.data_ptr(), *(t.data_ptr() for t in meta + flags + fields),
         *(t.data_ptr() for t in new_meta),
         *(d[k].data_ptr() for k, _ in DECISIONS), parked.data_ptr(),
-        pipes, b, m, w, OP_DROP, stream_handle(dev))
+        pipes, b, m, w, OP_DROP,
+        None if scratch is None else scratch.data_ptr(), stream_handle(dev))
     check("merge_stage", rc)
     COUNT.launches += 1
     return new_meta, d, parked, table

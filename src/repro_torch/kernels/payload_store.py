@@ -7,9 +7,12 @@ per packet, 8 packets per block and one grid row per pipe, in one launch.
 Duplicate enabled rows resolve as the sequential TPU kernel does (last
 writer wins): a packet's warp copies only if no later enabled packet of
 its pipe names the same row, which it finds by scanning the later
-packets' rows, staged in shared memory (4 bytes a packet, so B is at most
-``MAX_PACKETS``).  Bound by bytes: one read and one write of each enabled
-row.
+packets' rows, staged in shared memory (4 bytes a packet, so a launch
+takes at most ``MAX_PACKETS`` packets a pipe).  A larger batch runs as
+consecutive launches over tiles of ``MAX_PACKETS`` packets, in arrival
+order on one stream: a later tile writes after an earlier one, so the
+last writer still wins.  Bound by bytes: one read and one write of each
+enabled row.
 
 ``payload_store_cuda`` launches the kernel and raises on CPU tensors;
 ``payload_store`` is the ``auto`` entry, which takes the plain version
@@ -35,8 +38,8 @@ __all__ = ["COUNT", "MAX_PACKETS", "payload_store", "payload_store_cuda",
 def payload_store_cuda(table, payload, idx, enb) -> torch.Tensor:
     """In place: table (..., M, W) uint8, payload (..., B, W) uint8,
     idx (..., B) integer, enb (..., B) bool, W a multiple of 16.
-    Returns ``table``.  Shapes are checked before devices, so a B over
-    ``MAX_PACKETS`` raises ``ValueError`` wherever the tensors lie."""
+    Returns ``table``.  One launch per tile of at most ``MAX_PACKETS``
+    packets a pipe."""
     *lead, m, w = table.shape
     b = idx.shape[-1]
     if table.dtype != torch.uint8 or payload.dtype != torch.uint8:
@@ -49,9 +52,6 @@ def payload_store_cuda(table, payload, idx, enb) -> torch.Tensor:
     if w % 16:
         raise ValueError(f"payload_store: row width {w} is not a multiple "
                          "of 16")
-    if b > MAX_PACKETS:
-        raise ValueError(f"payload_store: {b} packets per pipe overflow the "
-                         f"block's shared memory (at most {MAX_PACKETS})")
     if m >= 1 << 31:
         raise ValueError(f"payload_store: {m} table rows do not fit int32")
     dev = require_cuda("payload_store", table, payload, idx, enb)
@@ -62,11 +62,13 @@ def payload_store_cuda(table, payload, idx, enb) -> torch.Tensor:
     pipes = table[..., 0, 0].numel()
     if pipes == 0 or b == 0:
         return table
-    rc = library().pp_payload_store(table.data_ptr(), payload.data_ptr(),
-                                    idx.data_ptr(), enb.data_ptr(), pipes, b,
-                                    m, w, stream_handle(dev))
-    check("payload_store", rc)
-    COUNT.launches += 1
+    for lo in range(0, b, MAX_PACKETS):
+        rc = library().pp_payload_store(
+            table.data_ptr(), payload.data_ptr() + lo * w,
+            idx.data_ptr() + lo * 4, enb.data_ptr() + lo, pipes,
+            min(MAX_PACKETS, b - lo), b, m, w, stream_handle(dev))
+        check("payload_store", rc)
+        COUNT.launches += 1
     return table
 
 

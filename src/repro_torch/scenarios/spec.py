@@ -18,8 +18,8 @@ batch into one ``run_pipes`` call.
 
 Traffic is drawn from ``torch.Generator``s on the CPU, so one seed gives
 the same packets whatever device the run then uses (and not the
-reference's ``jax.random`` packets).  The adversarial and churn workloads
-and ``devices > 1`` arrive with later slices and raise here.
+reference's ``jax.random`` packets).  ``devices > 1`` arrives with the
+fabric slice and raises here.
 """
 from __future__ import annotations
 
@@ -41,11 +41,12 @@ from repro_torch.switchsim.faults import NO_FAULT, FaultSpec
 from repro_torch.traffic import generator as T
 
 # ("fixed", size) | ("enterprise",) | ("datacenter",)
+# | ("adversarial", base, attack_fraction, burst)   (DESIGN.md §10)
+# | ("churn", pool, rotate)
 WorkloadSpec = tuple
 ChainSpec = tuple     # e.g. ("fw", "nat", "lb"); names below
 
 _NF_NAMES = ("fw", "nat", "lb", "macswap")
-_LATER_WORKLOADS = ("adversarial", "churn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +99,10 @@ class ScenarioSpec:
                 f"{self.name}: devices={self.devices}: sharding pipes over "
                 f"several cards arrives with the fabric slice")
         resolve_workload(self.workload)  # validates the name eagerly
+        if self.flows and self.workload[0] in ("adversarial", "churn"):
+            raise ValueError(
+                f"{self.name}: workload {self.workload[0]!r} owns the "
+                f"source identity (spoofed/churning flows); flows must be 0")
         for nf in self.chain:
             if nf not in _NF_NAMES:
                 raise ValueError(
@@ -153,10 +158,11 @@ def resolve_workload(ws: WorkloadSpec) -> T.Workload:
         return T.enterprise()
     if kind == "datacenter":
         return T.datacenter()
-    if kind in _LATER_WORKLOADS:
-        raise NotImplementedError(
-            f"workload {kind!r} is not ported yet: it arrives with the "
-            f"adversarial-family slice")
+    if kind == "adversarial":
+        return T.adversarial(base=ws[1], attack_fraction=float(ws[2]),
+                             burst=int(ws[3]))
+    if kind == "churn":
+        return T.churn(pool=int(ws[1]), rotate=int(ws[2]))
     raise ValueError(f"unknown workload spec {ws!r}")
 
 

@@ -47,6 +47,7 @@ from repro_torch.switchsim import faults as F
 from repro_torch.switchsim.results import EngineResult, PipesResult
 from repro_torch.switchsim.telemetry import (TEL_FIELDS, LinkTelemetry,
                                              sum_telemetry)
+from repro_torch.traffic import stream as stream_mod
 
 __all__ = [
     "EngineResult", "PipesResult", "run_engine", "run_pipes",
@@ -230,35 +231,48 @@ def _per_pipe_telemetry(ys: dict) -> list[LinkTelemetry]:
             for p in range(pipes)]
 
 
-def _per_pipe_nf_counters(chain: Chain, cstates) -> list[dict[str, int]]:
+def _per_pipe_nf_counters(chain: Chain, cstates,
+                          pipes: int) -> list[dict[str, int]]:
+    """One dict of NF-private counters per pipe (empty dicts for a chain
+    that keeps none)."""
     host = {k: v.cpu().tolist()
             for k, v in chain.state_counters(cstates).items()}
-    pipes = len(next(iter(host.values()))) if host else 0
     return [{k: int(v[p]) for k, v in host.items()} for p in range(pipes)]
 
 
-def _check_trace(trace, dims: int, what: str) -> PacketBatch:
-    if not isinstance(trace, PacketBatch):
-        raise TypeError(
-            f"{what} must be a time-major PacketBatch (trace sources arrive "
-            f"with the streaming slice); got {type(trace).__name__}")
-    if trace.src_ip.dim() != dims:
-        raise ValueError(f"{what} must have {dims} leading axes, got shape "
-                         f"{tuple(trace.src_ip.shape)}")
-    return trace
+def _as_pipe_traces(traces) -> PacketBatch:
+    """Coerce ``run_pipes``'s accepted trace spellings to (P, T, chunk,
+    ...): a pre-stacked PacketBatch passes through; a TraceSource becomes
+    one pipe; a sequence of per-pipe sources is materialized and stacked."""
+    if isinstance(traces, PacketBatch):
+        if traces.src_ip.dim() != 3:
+            raise ValueError(f"traces must have 3 leading axes (P, T, "
+                             f"chunk), got {tuple(traces.src_ip.shape)}")
+        return traces
+    if isinstance(traces, stream_mod.TraceSource):
+        traces = [traces]
+    if isinstance(traces, (list, tuple)):
+        mats = [stream_mod.as_source(t).materialize() for t in traces]
+        return map_fields(lambda n, *xs: torch.stack(xs), *mats)
+    raise TypeError(
+        f"traces must be a PacketBatch, a TraceSource or a sequence of "
+        f"TraceSources; got {type(traces).__name__}")
 
 
-def run_pipes(cfg: ParkConfig, chain: Chain, traces: PacketBatch,
-              window: int = 1, explicit_drops: bool = False, backend=None,
+def run_pipes(cfg: ParkConfig, chain: Chain, traces, window: int = 1,
+              explicit_drops: bool = False, backend=None,
               collect_sent: bool = False, faults=None, devices: int = 1,
               device=DEFAULT_DEVICE) -> PipesResult:
-    """Run P independent pipes over a (P, T, chunk, ...) PacketBatch trace.
+    """Run P independent pipes over per-pipe trace sources.
 
-    Each pipe owns a fresh ParkState and NF-chain state (the paper's
-    per-port pipes share nothing, §6.3.2); all pipes advance together
-    along the leading pipe axis.  ``faults`` is a ``FaultSpec`` or
-    ``FaultArrays``.  Only ``devices=1`` is ported: sharding pipes over
-    several cards is later work.
+    ``traces`` is a sequence of per-pipe ``traffic.stream.TraceSource``s
+    (equal geometry, stacked after materialization), a single source (one
+    pipe), or the pre-stacked (P, T, chunk, ...) ``PacketBatch`` the
+    sources materialize to.  Each pipe owns a fresh ParkState and NF-chain
+    state (the paper's per-port pipes share nothing, §6.3.2); all pipes
+    advance together along the leading pipe axis.  ``faults`` is a
+    ``FaultSpec`` or ``FaultArrays``.  Only ``devices=1`` is ported:
+    sharding pipes over several cards is later work.
     """
     if devices != 1:
         raise NotImplementedError(
@@ -266,7 +280,7 @@ def run_pipes(cfg: ParkConfig, chain: Chain, traces: PacketBatch,
             "fabric is not ported yet")
     backend = as_config(backend)
     dev = resolve_device(device)
-    traces = _check_trace(traces, 3, "traces").to(dev)
+    traces = _as_pipe_traces(traces).to(dev)
     pipes, steps, _ = traces.src_ip.shape
     fa = F.resolve(faults, pipes=pipes, steps=steps)
     state, cstates, merged, sent, ys = _execute(
@@ -280,7 +294,7 @@ def run_pipes(cfg: ParkConfig, chain: Chain, traces: PacketBatch,
     agg = dict(zip(C.NAMES, (int(v) for v in ctr.sum(axis=0))))
     per_pipe = [dict(zip(C.NAMES, (int(v) for v in ctr[p])))
                 for p in range(pipes)]
-    per_nf = _per_pipe_nf_counters(chain, cstates)
+    per_nf = _per_pipe_nf_counters(chain, cstates, pipes)
     nf_agg = {k: sum(d[k] for d in per_nf) for k in (per_nf[0] if per_nf
                                                       else {})}
     return PipesResult(
@@ -299,17 +313,21 @@ def run_pipes(cfg: ParkConfig, chain: Chain, traces: PacketBatch,
     )
 
 
-def run_engine(cfg: ParkConfig, chain: Chain, trace: PacketBatch,
-               window: int = 1, explicit_drops: bool = False, backend=None,
+def run_engine(cfg: ParkConfig, chain: Chain, trace, window: int = 1,
+               explicit_drops: bool = False, backend=None,
                collect_sent: bool = False, faults=None,
                device=DEFAULT_DEVICE) -> EngineResult:
-    """Run one pipe over a time-major (T, chunk, ...) PacketBatch trace.
+    """Run one pipe over a trace source, materialized.
 
-    The same step body as ``run_pipes``, with a pipe axis of one.  With
-    ``cfg.recirculation`` the run takes one extra drain step and NF-bound
-    chunks gain ``recirc_slots`` leading lane rows.
+    ``trace`` is a ``traffic.stream.TraceSource`` or a time-major (T,
+    chunk, ...) ``PacketBatch`` (the trivial ``MaterializedSource``);
+    ``switchsim.stream.run_stream`` is the constant-memory path for
+    sources too long to materialize.  The same step body as ``run_pipes``,
+    with a pipe axis of one.  With ``cfg.recirculation`` the run takes one
+    extra drain step and NF-bound chunks gain ``recirc_slots`` leading
+    lane rows.
     """
-    trace = _check_trace(trace, 2, "trace")
+    trace = stream_mod.as_source(trace).materialize()
     res = run_pipes(cfg, chain, map_fields(lambda n, a: a[None], trace),
                     window=window, explicit_drops=explicit_drops,
                     backend=backend, collect_sent=collect_sent,

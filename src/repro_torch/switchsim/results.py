@@ -1,7 +1,7 @@
 """Result dataclasses of the simulation entry points (port of
-``repro.switchsim.results``; the streaming result waits for the streaming
-slice).  ``flat_summary`` is the shared flat view every ``summary()``
-returns."""
+``repro.switchsim.results``): ``run_engine``, ``run_pipes``, the host loop
+and the streaming driver.  ``flat_summary`` is the shared flat view every
+``summary()`` returns."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,14 +12,18 @@ from repro_torch.core.packet import PacketBatch
 from repro_torch.core.park import ParkState
 from repro_torch.switchsim.telemetry import LinkTelemetry
 
-__all__ = ["EngineResult", "PipesResult", "SimResult", "flat_summary"]
+__all__ = ["EngineResult", "PipesResult", "SimResult", "StreamResult",
+           "flat_summary"]
 
 
 def flat_summary(counters: dict, telemetry: LinkTelemetry | None, *,
                  peak_occupancy: int | None = None,
-                 nf_counters: dict | None = None) -> dict:
+                 nf_counters: dict | None = None,
+                 latency: dict | None = None) -> dict:
     """Counters by name, byte totals, ``tel_<field>`` telemetry, peak
-    occupancy and NF-private counters, as one flat dict."""
+    occupancy, NF-private counters and the streaming tail-latency block
+    (``p50_us``/``p99_us``/``p999_us``/``latency_samples``), as one flat
+    dict."""
     out = {k: int(v) for k, v in counters.items()}
     if telemetry is not None:
         out["wire_bytes"] = telemetry.wire_bytes
@@ -32,6 +36,11 @@ def flat_summary(counters: dict, telemetry: LinkTelemetry | None, *,
         out["peak_occupancy"] = int(peak_occupancy)
     if nf_counters:
         out.update({k: int(v) for k, v in nf_counters.items()})
+    if latency:
+        out.update({k: latency[k] for k in
+                    ("p50_us", "p99_us", "p999_us") if k in latency})
+        if "samples" in latency:
+            out["latency_samples"] = int(latency["samples"])
     return out
 
 
@@ -101,3 +110,49 @@ class SimResult:
     def summary(self) -> dict:
         return flat_summary(self.counters, self.telemetry,
                             nf_counters=self.nf_counters)
+
+
+@dataclasses.dataclass
+class StreamResult:
+    """Result of a streaming run (``switchsim.stream.run_stream``).
+
+    No merged or sent traffic is kept: the final switch state, the exact
+    counters, telemetry and NF counters (equal to the materialized
+    engine's over the same steps), the reservoir-sampled sojourn times
+    (``latency``: p50/p99/p999 in µs and the sample counts) and one
+    occupancy summary per segment (``occ_segments``: ``start``, ``steps``,
+    ``min``, ``mean``, ``max``, ``last``).
+    """
+
+    state: ParkState
+    counters: dict
+    telemetry: LinkTelemetry
+    nf_counters: dict
+    peak_occupancy: int
+    latency: dict
+    occ_segments: list[dict]
+    steps: int
+    segments: int
+    segment_len: int
+
+    @property
+    def wire_bytes(self) -> int:
+        return self.telemetry.wire_bytes
+
+    @property
+    def srv_bytes(self) -> int:
+        return self.telemetry.srv_bytes
+
+    @property
+    def srv_fwd_bytes(self) -> int:
+        return self.telemetry.to_server_bytes
+
+    @property
+    def ret_bytes(self) -> int:
+        return self.telemetry.merged_bytes
+
+    def summary(self) -> dict:
+        return flat_summary(self.counters, self.telemetry,
+                            peak_occupancy=self.peak_occupancy,
+                            nf_counters=self.nf_counters,
+                            latency=self.latency)

@@ -361,21 +361,66 @@ def test_merge_stage_binding_matches_its_signature(monkeypatch):
         table, *meta, flag, flag, z, z, z, z, z)
     assert [c[0] for c in calls] == ["pp_merge_stage"]
     args = calls[0][1]
-    assert len(args) == len(build.SIGNATURES["pp_merge_stage"]) == 27
+    assert len(args) == len(build.SIGNATURES["pp_merge_stage"]) == 28
     assert args[21:26] == (1, b, m, W, OP_DROP)   # pipes, b, m, width, op
+    assert args[26] is None                       # shared memory: no scratch
     assert MS.COUNT.launches == before + 1
     assert tab is table and tuple(parked.shape) == (1, b, W)
     assert [(k, d[k].dtype) for k in d] == list(MS.DECISIONS)
 
 
 def test_merge_stage_cuda_raises_past_its_shared_memory():
+    """Past one block's shared memory the kernel works in device memory, so
+    the size raises nothing: a CPU call raises only for its device."""
     from repro_torch.kernels import merge_stage as MS
     b = MS.MAX_SHARED // 5 + 1
     z = torch.zeros(b, dtype=torch.int32)
     flag = torch.ones(b, dtype=torch.bool)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         MS.merge_stage_cuda(torch.zeros(16, W, dtype=torch.uint8),
                             *(torch.zeros(16, dtype=torch.int32)
                               for _ in range(3)),
                             flag, flag, z, z, z, z, z)
     assert launch_counts()["merge_stage"] == 0
+
+
+@pytest.mark.parametrize("pipes,b,m,past", [
+    (1, 256, 1 << 20, True),                  # the table's bitmaps
+    (2, 227 * 1024 // 17 + 1, 16, True),      # the staged rows
+    (1, 256, 19008 * 32, False),              # 232448 B: at the limit
+    (1, 256, 19008 * 32 + 1, True),           # one bitmap word past it
+])
+def test_merge_stage_cuda_passes_device_scratch_past_its_shared_memory(
+        monkeypatch, pipes, b, m, past):
+    """Past ``MAX_SHARED`` bytes a pipe the launcher hands the kernel a
+    device-memory scratch of ``scratch_words`` int32 words a pipe (16-byte
+    aligned) and still launches once; under it, a null scratch."""
+    from repro_torch.kernels import merge_stage as MS
+    calls, scratch = [], []
+    _fake_library(monkeypatch, MS, calls)
+    real_empty = torch.empty
+
+    def empty(shape, *a, **kw):
+        out = real_empty(shape, *a, **kw)
+        if kw.get("dtype") == torch.int32 and len(shape) == 2 \
+                and shape[1] == MS.scratch_words(b, m):
+            scratch.append(out)
+        return out
+
+    monkeypatch.setattr(MS.torch, "empty", empty)
+    before = MS.COUNT.launches
+    table = torch.zeros(pipes, m, W, dtype=torch.uint8)
+    meta = [torch.zeros(pipes, m, dtype=torch.int32) for _ in range(3)]
+    flag = torch.ones(pipes, b, dtype=torch.bool)
+    z = torch.zeros(pipes, b, dtype=torch.int32)
+    MS.merge_stage_cuda(table, *meta, flag, flag, z, z, z, z, z)
+    assert MS.COUNT.launches == before + 1
+    args = calls[0][1]
+    assert past == (MS.shared_bytes(b, m) > MS.MAX_SHARED)
+    if past:
+        assert len(scratch) == 1 and args[26] == scratch[0].data_ptr()
+        assert tuple(scratch[0].shape) == (pipes, MS.scratch_words(b, m))
+        assert MS.scratch_words(b, m) % 4 == 0
+        assert 4 * MS.scratch_words(b, m) >= MS.shared_bytes(b, m)
+    else:
+        assert args[26] is None and not scratch

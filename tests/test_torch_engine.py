@@ -177,8 +177,12 @@ def test_run_pipes_rejects_what_is_not_ported(setups, traces):
     _, tp, _, ttr = traces
     with pytest.raises(NotImplementedError):
         TE.run_pipes(tcfg, tch, ttr, devices=2, device="cpu")
-    with pytest.raises(TypeError):
+    # a sequence of sources takes time-major (T, chunk) traces, as the
+    # reference's does: a (P, T, chunk) batch in it is refused
+    with pytest.raises(ValueError):
         TE.run_pipes(tcfg, tch, [ttr], device="cpu")
+    with pytest.raises(TypeError):
+        TE.run_pipes(tcfg, tch, object(), device="cpu")
     with pytest.raises(TypeError):
         TE.run_engine(tcfg, tch, object(), device="cpu")
 

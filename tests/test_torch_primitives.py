@@ -258,9 +258,11 @@ def test_payload_store_cuda_raises_on_cpu_tensors():
 
 
 def test_payload_store_cuda_raises_past_its_shared_memory():
+    """Past one block's shared memory the launcher tiles the batch, so the
+    size raises nothing: a CPU call raises only for its device."""
     from repro_torch.kernels import payload_store as PS
     b = PS.MAX_PACKETS + 1
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         PS.payload_store_cuda(torch.zeros(4, 16, dtype=torch.uint8),
                               torch.zeros(b, 16, dtype=torch.uint8),
                               torch.zeros(b, dtype=torch.int32),
@@ -302,9 +304,37 @@ def test_payload_store_binding_matches_its_signature(monkeypatch):
     PS.payload_store_cuda(table.view(1, 4, 16), payload.view(1, 8, 16),
                           idx.view(1, 8), enb.view(1, 8))
     assert [c[0] for c in calls] == ["pp_payload_store"]
-    assert len(calls[0][1]) == len(build.SIGNATURES["pp_payload_store"]) == 9
-    assert calls[0][1][4:8] == (1, 8, 4, 16)        # pipes, b, m, width
+    assert len(calls[0][1]) == len(build.SIGNATURES["pp_payload_store"]) == 10
+    assert calls[0][1][4:9] == (1, 8, 8, 4, 16)  # pipes, b, stride, m, width
     assert PS.COUNT.launches == before + 1          # one launch per call
+
+
+@pytest.mark.parametrize("pipes,b", [(1, 16384), (3, 2 * 12288 + 5),
+                                     (2, 12288)])
+def test_payload_store_cuda_tiles_past_max_packets(monkeypatch, pipes, b):
+    """A batch past ``MAX_PACKETS`` packets a pipe runs as consecutive
+    launches over tiles of at most ``MAX_PACKETS``, in arrival order: each
+    launch names its tile's first packet of every pipe (the pipes lie
+    ``b`` packets apart) and counts one launch."""
+    from repro_torch.kernels import payload_store as PS
+    calls = []
+    _fake_library(monkeypatch, PS, calls)
+    before = PS.COUNT.launches
+    m, w = 64, 16
+    table = torch.zeros(pipes, m, w, dtype=torch.uint8)
+    payload = torch.zeros(pipes, b, w, dtype=torch.uint8)
+    idx = torch.zeros(pipes, b, dtype=torch.int32)
+    enb = torch.ones(pipes, b, dtype=torch.bool)
+    assert PS.payload_store_cuda(table, payload, idx, enb) is table
+    tiles = list(range(0, b, PS.MAX_PACKETS))
+    assert [c[0] for c in calls] == ["pp_payload_store"] * len(tiles)
+    assert PS.COUNT.launches == before + len(tiles)
+    for lo, (_, args) in zip(tiles, calls):
+        assert args[0] == table.data_ptr()
+        assert args[1] == payload.data_ptr() + lo * w
+        assert args[2] == idx.data_ptr() + lo * 4
+        assert args[3] == enb.data_ptr() + lo
+        assert args[4:9] == (pipes, min(PS.MAX_PACKETS, b - lo), b, m, w)
 
 
 def test_paged_attention_binding_matches_its_signature(monkeypatch):

@@ -31,7 +31,7 @@ from repro_torch.switchsim.telemetry import LinkTelemetry as TTel  # noqa: E402
 from repro_torch.traffic import generator as TG  # noqa: E402
 
 FAMILIES = ("pipeline", "recirc", "hostmodel_sizes", "hostmodel_servers",
-            "chain")
+            "chain", "adversarial")
 MINI = dict(name="m", packets=128, chunk=32, capacity=64, pmax=512)
 
 
@@ -51,7 +51,7 @@ def test_family_expands_like_reference(fam, tiny):
 
 
 def test_registry_and_shapes_match_reference():
-    assert set(TS.names()) == set(JS.names()) - {"adversarial"}
+    assert set(TS.names()) == set(JS.names())
     from repro.configs import sweeps as JSweeps
     for tiny in (True, False):
         assert dataclasses.asdict(TSweeps.shape(tiny)) == \
@@ -70,6 +70,12 @@ BAD_SPECS = {
     "nat_capacity_without_nat": dict(chain=("fw",), nat_capacity=64),
     "unknown_backend": dict(backend="bogus"),
     "lb_fault_without_lb": dict(fault=dict(kind="lb", duration=2)),
+    "flows_with_adversarial": dict(
+        flows=16, workload=("adversarial", "enterprise", 0.5, 4)),
+    "flows_with_churn": dict(flows=16, workload=("churn", 64, 128)),
+    "attack_fraction_past_one": dict(
+        workload=("adversarial", "enterprise", 1.5, 4)),
+    "churn_pool_of_one": dict(workload=("churn", 1, 128)),
     "fault_past_trace": dict(fault=dict(kind="server", start=3,
                                         duration=2)),
     "fault_pipe_out_of_range": dict(pipes=2, fault=dict(kind="server",
@@ -93,13 +99,25 @@ def test_spec_checks_raise_where_the_reference_does(case):
 
 @pytest.mark.parametrize("kw", [
     dict(devices=2),
-    dict(workload=("adversarial", "enterprise", 0.5, 4)),
-    dict(workload=("churn", 64, 128)),
-], ids=["devices", "adversarial", "churn"])
+], ids=["devices"])
 def test_later_slices_raise(kw):
     _spec(JS, **kw)  # the reference takes them
     with pytest.raises(NotImplementedError, match="slice"):
         _spec(TS, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(workload=("adversarial", "enterprise", 0.5, 4)),
+    dict(workload=("adversarial", "datacenter", 0.25, 32)),
+    dict(workload=("churn", 64, 128)),
+], ids=["adversarial", "adversarial_datacenter", "churn"])
+def test_adversarial_and_churn_specs_match_reference(kw):
+    assert _fields(_spec(TS, **kw)) == _fields(_spec(JS, **kw))
+    want = JS.resolve_workload(kw["workload"])
+    got = TS.resolve_workload(kw["workload"])
+    assert got.name == want.name
+    assert np.array_equal(got.sizes, want.sizes)
+    assert np.array_equal(got.probs, want.probs)
 
 
 def test_good_specs_pass_both_checks():
