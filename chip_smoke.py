@@ -19,20 +19,28 @@ Phases (any failure raises, so the script exits non-zero):
    the batch (M 64, 256 packets), without a pipe axis, with every packet
    masked, and for Merge on returning packets with flipped CRCs,
    out-of-range and negative tags with valid CRCs, explicit drops,
-   duplicate tags and a second match with pp_clk 0 after a free.  The NF
-   chain's kernel (``nf_chain``) is held exactly against its plain version
-   (headers, drops, NAT tables, ``stale_hits``, states) on FW -> NAT at 8
-   pipes x 256 packets, FW -> NAT -> LB with a per-pipe ``lb_up`` mix, NAT
-   alone at capacity 8 and 16 (exhaustion, CLOCK aging, stale hits), 3
-   flows repeated in a batch, no pipe axis with a 0-d flag, capacity 16384
-   (shared memory near full) and 32768 (the walk in device memory), the
-   MAC swap alone and a chain of 12 NFs, past the stage limit (two
-   launches).  Past the one-block limits: ``payload_store`` at 1 pipe x
-   16384 packets (M 4096, W 160, the same row on both sides of the tile
-   boundary) in two launches of at most 12288 packets, and ``merge_stage``
-   at M = 2**20, B = 256 (397568 B of bitmaps and staged rows, in a
-   device-memory scratch) on honest and contested tags, each exact and
-   timed beside its plain version.  Each wrapper call must add exactly one
+   duplicate tags and a second match with pp_clk 0 after a free; and for
+   the kernel's blocks of slot ranges, contested slots on both sides of a
+   range boundary, M 4100 (15 ranges of 288 slots) and every packet on one
+   slot (each case prints its blocks a pipe, N).  The NF chain's kernel
+   (``nf_chain``) is held exactly against its plain version (headers,
+   drops, NAT tables, ``stale_hits``, states) on FW -> NAT at 8 pipes x
+   256 packets, FW -> NAT -> LB with a per-pipe ``lb_up`` mix, NAT alone
+   at capacity 8, 12 (every probe window overlaps) and 16 (exhaustion,
+   CLOCK aging, stale hits), one flow 256 times (256 waves), flows hashing
+   into the table's last 12 or first 4 slots (windows wrap), 3 flows
+   repeated in a batch, no pipe axis with a 0-d flag, 1 x 2048 (8 schedule
+   chunks), capacity 16384 (shared memory near full) and 32768 (the walk
+   in device memory; also with 3 flows repeated), the MAC swap alone and a
+   chain of 12 NFs, past the stage limit (two launches); each case prints
+   its NAT wave depth (``ref.nat_waves``).  Past the one-block limits:
+   ``payload_store`` at 1 pipe x 16384 packets (M 4096, W 160, the same
+   row on both sides of the tile boundary) in two launches of at most
+   12288 packets, and ``merge_stage`` at M = 2**20, B = 256 (128 blocks of
+   8192 slots, in shared memory) on honest and contested tags, each exact
+   and timed beside its plain version, and at 1 x 14336 packets (past the
+   227 KB of shared memory, in a device-memory scratch), exact.  Each
+   wrapper call must add exactly one
    launch to its kernel's count (``nf_chain`` one per 8 stages,
    ``payload_store`` one per tile).  Each
    kernel is timed (median of 30 launches, CUDA events) beside its plain
@@ -47,7 +55,8 @@ Phases (any failure raises, so the script exits non-zero):
    max_exp 2, pmax 2048, 20 firewall rules -> NAT), and ``run_engine`` with
    one recirculating pipe (352-byte rows) over 4096 of those packets, each
    on the card with the kernels and on the CPU with the plain versions
-   from the same seeded inputs; counters, telemetry, NF counters,
+   from the same seeded inputs (the CPU run also prints the NAT wave depth
+   of every pipe's NAT call); counters, telemetry, NF counters,
    occupancy and merged wire bytes must be identical, the goodput gain
    positive, and every kernel of the path launched during each card run:
    ``split_control`` once per Split call, ``merge_stage`` once per Merge
@@ -152,9 +161,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12      # non-tensor 32-bit rate, the same data sheet
 BF16_FLOP_PER_S = 989e12    # dense bf16 tensor-core rate, the same sheet
 # 32-bit integer operations per packet: crc16 takes 4 byte extractions
-# (2 ops), and per byte a shift and xor plus 8 steps of shift, mask, shift,
-# mask and a conditional xor; acl_match a compare and an or per rule.
-CRC16_OPS = 4 * 2 + 4 * (2 + 8 * 5)
+# (2 ops), and per byte 12 (csrc/crc16.cuh: the byte-wise update); acl_match
+# a compare and an or per rule.
+CRC16_OPS = 4 * 2 + 4 * 12
 # maglev: four multiply-xor steps, a mask and a modulo per packet
 MAGLEV_OPS = 4 * 2 + 2
 # NAT's walk per live packet: the hash (7), and per probe slot a wrap, two
@@ -422,13 +431,15 @@ def tiled_store_inputs(gen, b, m, w, dev):
 
 
 def check_past_limits(gen, dev) -> dict:
-    """Phase 2 past the kernels' one-block limits (the sizes that raised
-    before): ``payload_store`` at 1 pipe x 16384 packets, M 4096, W 160 in
-    consecutive tiles of ``MAX_PACKETS`` (two launches a call), and
-    ``merge_stage`` at M = 2**20, B = 256 (12 M / 32 + 17 B = 397568 B of
-    bitmaps and staged rows, past the 227 KB of shared memory, so in a
-    device-memory scratch; one launch a call) on honest and contested
-    tags.  Each exact against its plain version, timed beside it."""
+    """Phase 2 past the kernels' one-block limits (sizes that once
+    raised): ``payload_store`` at 1 pipe x 16384 packets, M 4096, W
+    160 in consecutive tiles of ``MAX_PACKETS`` (two launches a call), and
+    ``merge_stage`` at M = 2**20, B = 256 (128 blocks of 8192 slots, 7424 B
+    of bitmaps and staged rows a block, in shared memory) on honest and
+    contested tags, and at 1 x 14336 packets, M 4096 (past the 227 KB of
+    shared memory, so in a device-memory scratch).  One launch a
+    ``merge_stage`` call.  Each exact against its plain version, the first
+    two timed beside it."""
     from repro_torch.backend import ref as R
     from repro_torch.kernels import launch_counts, merge_stage
     from repro_torch.kernels import payload_store as PS
@@ -456,11 +467,14 @@ def check_past_limits(gen, dev) -> dict:
     print(f"payload_store 1x{b}x{w}, M {m}: exact in {tiles} launches "
           f"(duplicate rows across each tile boundary)")
 
-    m, b = 1 << 20, 256
-    if merge_stage.shared_bytes(b, m) <= merge_stage.MAX_SHARED:
-        raise AssertionError("merge_stage case does not pass the limit")
     err = 0
-    for label, corrupt in (("honest", False), ("contested", True)):
+    for label, b, m, corrupt in (("honest", 256, 1 << 20, False),
+                                 ("device-memory scratch", 14336, 4096, True),
+                                 ("contested", 256, 1 << 20, True)):
+        scratch = merge_stage.shared_bytes(b, m) > merge_stage.MAX_SHARED
+        if scratch != (b > 256):
+            raise AssertionError(f"merge_stage 1x{b} M {m}: shared memory "
+                                 f"{merge_stage.shared_bytes(b, m)} B")
         margs = merge_args(gen, (1,), b, m, w, dev, corrupt)
         got = once("merge_stage", merge_stage.merge_stage_cuda,
                    margs[0].clone(), *margs[1:])
@@ -468,10 +482,13 @@ def check_past_limits(gen, dev) -> dict:
         err = max(err, same_all(f"merge_stage 1x{b} M {m} {label}", got,
                                 want))
         if corrupt and not bool(want[1]["matched"][..., 7].all()):
-            raise AssertionError("merge_stage M 2**20: the second match "
-                                 "after a free did not match")
-        print(f"merge_stage 1x{b}, M {m} ({merge_stage.shared_bytes(b, m)} B "
-              f"in device memory), {label} tags: exact, one launch")
+            raise AssertionError(f"merge_stage 1x{b} M {m}: the second "
+                                 "match after a free did not match")
+        n, span = merge_stage.slot_ranges(m)
+        print(f"merge_stage 1x{b}, M {m}, {label} tags: exact, one launch "
+              f"of N {n} blocks of {span} slots, "
+              f"{merge_stage.shared_bytes(b, m)} B a block in "
+              f"{'device' if scratch else 'shared'} memory")
     matched = int(want[1]["matched"].sum())
     rows["merge_stage"] = dict(
         max_abs_err=err, shape=f"1 x {b}, M {m}, W {w}, contested tags",
@@ -535,7 +552,7 @@ def split_args(gen, cfg, lead, b, dev, alive_frac=0.9) -> list:
             plen.to(dev)]
 
 
-def merge_args(gen, lead, b, m, w, dev, corrupt=False) -> list:
+def merge_args(gen, lead, b, m, w, dev, corrupt=False, plant=None) -> list:
     """``merge_stage``'s arguments: a random payload table, metadata from
     ``control_state`` and returning packets whose tags name live slots
     (distinct slots when B <= M), 10 % with a stale generation, 20 %
@@ -543,9 +560,14 @@ def merge_args(gen, lead, b, m, w, dev, corrupt=False) -> list:
     them.  ``corrupt`` plants, in every pipe, flipped CRCs (packets 0-1),
     an out-of-range and a negative tag with valid CRCs (2-3), a duplicate
     tag (5 repeats 4) and a second match with pp_clk 0 after a free (7
-    names 6's live slot)."""
+    names 6's live slot).  ``plant="boundary"`` adds two contested slots
+    on either side of the kernel's first range boundary (packets 8-11:
+    each slot matched, then matched again with pp_clk 0 after the free);
+    ``plant="one slot"`` sends every packet to slot 5, a third of them
+    with pp_clk 0."""
     from repro_torch.backend import ref as R
     from repro_torch.core.packet import OP_DROP
+    from repro_torch.kernels.merge_stage import slot_ranges
 
     _, _, exp, gens, lens = control_state(gen, lead, m, 2, "cpu")
     table = torch.randint(0, 256, lead + (m, w), generator=gen,
@@ -572,9 +594,28 @@ def merge_args(gen, lead, b, m, w, dev, corrupt=False) -> list:
         valid[..., :8] = True
         enb[..., :8] = 1
         stale[..., :8] = False
+    zero_clk = torch.zeros(shape, dtype=torch.bool)
+    if plant == "boundary":
+        edge = slot_ranges(m)[1]
+        for k, v in ((8, edge - 1), (9, edge - 1), (10, edge), (11, edge)):
+            slots[..., k] = v
+        zero_clk[..., [9, 11]] = True
+        picked = slice(8, 12)
+    elif plant == "one slot":
+        slots[...] = 5
+        zero_clk[..., 1::3] = True
+        picked = slice(None)
+    if plant is not None:
+        exp.scatter_(-1, slots[..., picked], 1)
+        gens.scatter_(-1, slots[..., picked], 55)
+        for x in (alive, valid):
+            x[..., picked] = True
+        enb[..., picked] = 1
+        stale[..., picked] = False
     ti = slots.to(torch.int32)
     clk = torch.gather(gens, -1, slots)
     clk = torch.where(stale, clk + 1, clk)
+    clk = torch.where(zero_clk, 0, clk)
     if corrupt:
         ti[..., 2], ti[..., 3] = m + 3, -1
         clk[..., 2] = clk[..., 3] = gens[..., m - 1]
@@ -621,38 +662,58 @@ def check_control(gen, dev) -> tuple[int, int]:
             f"split_control {label}",
             once("split_control", split_control.split_control_cuda, *args),
             R.split_control(*args)))
-    for label, lead, b, m, w, corrupt, masked in (
-            ("8x256 M4096 W160", (8,), 256, 4096, 160, False, False),
-            ("8x256 M4096 W352", (8,), 256, 4096, 352, False, False),
-            ("8x256 M4096 W160 corrupted", (8,), 256, 4096, 160, True, False),
-            ("8x256 M4096 W352 corrupted", (8,), 256, 4096, 352, True, False),
+    for label, lead, b, m, w, corrupt, masked, plant in (
+            ("8x256 M4096 W160", (8,), 256, 4096, 160, False, False, None),
+            ("8x256 M4096 W352", (8,), 256, 4096, 352, False, False, None),
+            ("8x256 M4096 W160 corrupted", (8,), 256, 4096, 160, True, False,
+             None),
+            ("8x256 M4096 W352 corrupted", (8,), 256, 4096, 352, True, False,
+             None),
             ("1x256 M64 (batch larger than the table)", (1,), 256, 64, 160,
-             True, False),
-            ("no pipe axis, 264 packets", (), 264, 4096, 160, True, False),
-            ("8x256 all masked", (8,), 256, 4096, 160, False, True)):
-        table, *rest = merge_args(gen, lead, b, m, w, dev, corrupt)
+             True, False, None),
+            ("no pipe axis, 264 packets", (), 264, 4096, 160, True, False,
+             None),
+            ("8x256 all masked", (8,), 256, 4096, 160, False, True, None),
+            ("8x256 M4096 W160, contested slots on a range boundary", (8,),
+             256, 4096, 160, True, False, "boundary"),
+            ("8x256 M4100 W160 corrupted", (8,), 256, 4100, 160, True, False,
+             "boundary"),
+            ("2x256 M4096 W160, every packet on slot 5", (2,), 256, 4096,
+             160, False, False, "one slot")):
+        table, *rest = merge_args(gen, lead, b, m, w, dev, corrupt, plant)
         if masked:
             rest[5] = torch.zeros_like(rest[5])  # pp_enb
         got = once("merge_stage", merge_stage.merge_stage_cuda,
                    table.clone(), *rest)
         want = R.merge_stage(table.clone(), *rest)
         e_merge = max(e_merge, same_all(f"merge_stage {label}", got, want))
-        if corrupt and not bool(want[1]["matched"][..., 7].all()):
+        matched = want[1]["matched"]
+        if corrupt and not bool(matched[..., 7].all()):
             raise AssertionError(f"merge_stage {label}: the second match "
                                  "after a free did not match")
+        if plant == "boundary" and not bool(matched[..., 8:12].all()):
+            raise AssertionError(f"merge_stage {label}: the boundary slots "
+                                 "did not match twice each")
+        n, span = merge_stage.slot_ranges(m)
+        print(f"merge_stage {label}: exact; N {n} blocks a pipe of {span} "
+              f"slots, {int(matched.sum())} matched")
     return e_split, e_merge
 
 
-def nf_chain_inputs(gen, kinds, lead, b, cap, dev, flows=512, up=None):
+def nf_chain_inputs(gen, kinds, lead, b, cap, dev, flows=512, up=None,
+                    alive=0.9, crowd=0):
     """``nf_chain``'s arguments for the chain ``kinds`` (``fw``: up to 10
     rules from the flow pool and 10 from outside it; ``nat``: capacity
     ``cap``; ``lb``: fault target 3,
     ``up`` its flag): packets of ``lead`` pipes x ``b`` drawn from
-    ``flows`` (src_ip, src_port) flows, 90 % alive, and NAT tables with
-    about a third of the slots live, a third aged out and a third free,
-    their keys drawn from the same flows so that hits, stale hits and
-    inserts all happen.  Returns ``(chain, fields, stages)``."""
-    from repro_torch.backend.ref import NF_FIELDS
+    ``flows`` (src_ip, src_port) flows, a share ``alive`` of them alive,
+    and NAT tables with about a third of the slots live, a third aged out
+    and a third free, their keys drawn from the same flows so that hits,
+    stale hits and inserts all happen.  ``crowd`` > 0 draws the flows
+    among those that hash into the table's last ``crowd`` slots or its
+    first 4, so that the probe windows wrap at its end.  Returns
+    ``(chain, fields, stages)``."""
+    from repro_torch.backend.ref import NF_FIELDS, nat_hash
     from repro_torch.nf.chain import Chain
     from repro_torch.nf.firewall import Firewall
     from repro_torch.nf.macswap import MacSwap
@@ -665,9 +726,14 @@ def nf_chain_inputs(gen, kinds, lead, b, cap, dev, flows=512, up=None):
     shape = lead + (b,)
     pool_ip = ints(1, 1 << 30, (flows,))
     pool_port = ints(1024, 65536, (flows,))
+    if crowd:
+        ip, port = ints(1, 1 << 30, (1 << 20,)), ints(1024, 65536, (1 << 20,))
+        h = nat_hash(ip, port, cap)
+        near = ((h >= cap - crowd) | (h < 4)).nonzero()[:flows, 0]
+        pool_ip, pool_port = ip[near], port[near]
     pick = torch.randint(0, flows, shape, generator=gen)
     fields = dict(
-        alive=torch.rand(shape, generator=gen) < 0.9,
+        alive=torch.rand(shape, generator=gen) < alive,
         src_ip=pool_ip[pick], dst_ip=ints(-(1 << 31), (1 << 31) - 1, shape),
         src_port=pool_port[pick], dst_port=ints(1024, 65536, shape),
         proto=torch.where(torch.rand(shape, generator=gen) < 0.8, 17,
@@ -714,6 +780,17 @@ def check_nf_chain(gen, dev) -> int:
     mix = torch.tensor([True, False, True, True, False, True, False, True])
     cases = (
         ("8x256 fw,nat C4096", ("fw", "nat"), (8,), 256, 4096, {}),
+        ("1x256 nat C4096, one flow 256 times", ("nat",), (1,), 256, 4096,
+         dict(flows=1, alive=1.0)),
+        ("2x256 nat C4096, flows hashing into the last 12 or first 4 slots "
+         "(windows wrap)", ("nat",), (2,), 256, 4096,
+         dict(flows=64, crowd=12)),
+        ("2x256 nat C12 (every window overlaps)", ("nat",), (2,), 256, 12,
+         dict(flows=40)),
+        ("1x2048 fw,nat C4096 (8 schedule chunks)", ("fw", "nat"), (1,),
+         2048, 4096, {}),
+        ("2x320 fw,nat C32768 in device memory, 3 flows repeated",
+         ("fw", "nat"), (2,), 320, 32768, dict(flows=3)),
         ("8x256 fw,nat,lb C4096, per-pipe lb_up", ("fw", "nat", "lb"),
          (8,), 256, 4096, dict(up=mix)),
         ("2x256 nat C8 (exhaustion, CLOCK, stale hits)", ("nat",), (2,),
@@ -752,11 +829,53 @@ def check_nf_chain(gen, dev) -> int:
         stale = sum(int(want[2][k].stale_hits.sum()
                         - stages[k].state.stale_hits.sum())
                     for k in nat)
+        depth = nat_depths(fields, stages)
+        waves = (f"NAT wave depth a pipe mean {statistics.mean(depth):.2f}, "
+                 f"max {max(depth)}" if depth else "no NAT")
         print(f"nf_chain {label}: exact; {int(want[1].sum())} dropped, "
-              f"{stale} stale hits, {launches} launch(es)")
+              f"{stale} stale hits, {launches} launch(es); {waves}")
         if "nat" in kinds and cap == 8 and not stale:
             raise AssertionError(f"nf_chain {label}: no stale hit to check")
     return err
+
+
+def nat_depths(fields, stages) -> list[int]:
+    """The wave depth (``ref.nat_waves``) of each pipe at each NAT stage of
+    a chain, on the header fields that reach the stage."""
+    from repro_torch.backend import ref as R
+    depths = []
+    for k, st in enumerate(stages):
+        if st.kind == "nat":
+            alive, src_ip, _, src_port = R.nf_chain(fields, stages[:k])[0][:4]
+            waves = R.nat_waves(src_ip, src_port, alive, st.consts.capacity)
+            depths += waves.reshape(-1, waves.shape[-1]).amax(-1).tolist()
+    return depths
+
+
+@contextlib.contextmanager
+def recording_nat_depths():
+    """The wave depth of each pipe of every NAT call that the plain version
+    (``ref.nat_insert``) runs while the block runs: a CPU run, which the
+    card run beside it must match exactly."""
+    from repro_torch.backend import ref as R
+    depths, plain = [], R.nat_insert
+
+    def recorded(src_ip, src_port, alive, *rest):
+        waves = R.nat_waves(src_ip, src_port, alive, rest[3])
+        depths.extend(waves.reshape(-1, waves.shape[-1]).amax(-1).tolist())
+        return plain(src_ip, src_port, alive, *rest)
+
+    R.nat_insert = recorded
+    try:
+        yield depths
+    finally:
+        R.nat_insert = plain
+
+
+def depth_line(label: str, depths: list[int]) -> str:
+    return (f"{label}: NAT wave depth a pipe call mean "
+            f"{statistics.mean(depths):.2f}, max {max(depths)} over "
+            f"{len(depths)} pipe calls")
 
 
 def nf_chain_bound(fields, stages) -> dict:
@@ -891,6 +1010,9 @@ def time_kernels(dev) -> dict:
     for key, kinds, lead in (("nf_chain", ("fw", "nat"), (8,)),
                              ("nf_chain chain", ("fw", "nat", "lb"), (2,))):
         _, nf_fields, stages = nf_chain_inputs(gen, kinds, lead, b, m, dev)
+        depth = nat_depths(nf_fields, stages)
+        print(f"time {key}: NAT wave depth a pipe mean "
+              f"{statistics.mean(depth):.2f}, max {max(depth)}")
         rows[key] = dict(
             ms=device_ms(lambda: nf_chain.nf_chain_cuda(nf_fields, stages)),
             plain_ms=device_ms(lambda: R.nf_chain(nf_fields, stages)),
@@ -1030,12 +1152,19 @@ def one_kernel_per_call(dev) -> dict:
             lambda d, args=args:
             paged_attention.paged_decode_attention_cuda(*args))
     # a short profile taken right after a long one records no device
-    # events (seen with torch 2.11), so a first profile is thrown away
+    # events (seen with torch 2.11), so a first profile is thrown away, and
+    # a profile that recorded no device event at all is taken again (at
+    # most twice); one with events must show exactly one kernel
     device_busy(runs["payload_store"], dev)
     durations = {}
     for label, run in runs.items():
         run(dev)
         prof = device_busy(run, dev)
+        for _ in range(2):
+            if prof["kernels"]:
+                break
+            print(f"profile {label}: no device event recorded, taken again")
+            prof = device_busy(run, dev)
         names = [n for n, _ in prof["top"]]
         if prof["kernels"] != 1:
             raise AssertionError(f"{label}: one call ran {prof['kernels']} "
@@ -1165,9 +1294,10 @@ def engine(dev, packets: int = 16384):
             sync(dev)
             wall = time.perf_counter() - t0
         counts[label] = launch_counts()
-        t0 = time.perf_counter()
-        cpu = run("cpu")
-        cpu_wall = time.perf_counter() - t0
+        with recording_nat_depths() as depths:
+            t0 = time.perf_counter()
+            cpu = run("cpu")
+            cpu_wall = time.perf_counter() - t0
         compare_runs(label, gpu, cpu, per_pipe)
         gain = goodput_gain(gpu)["goodput_gain"]
         if not gain > 0:
@@ -1178,6 +1308,7 @@ def engine(dev, packets: int = 16384):
               f" CPU {cpu_wall:.3f} s, goodput_gain {gain:.6f}, counters "
               f"{gpu.counters}, launches {counts[label]} for {calls}; "
               "identical to the CPU run")
+        print(depth_line(f"engine {label}", depths))
     head = map_fields(lambda n, a: a[:, :PROFILE_STEPS], traces)
     traced = [("pipes8", lambda d: run_pipes(cfg, chain, head, window=window,
                                              device=d),
@@ -1232,7 +1363,9 @@ def chain_phase(dev):
     with path_calls() as calls:
         gpu, gpu_walls = run_groups(dev)
     counts = launch_counts()
-    cpu, cpu_walls = run_groups("cpu")
+    with recording_nat_depths() as depths:
+        cpu, cpu_walls = run_groups("cpu")
+    print(depth_line("chain, both groups", depths))
     for name in gpu:
         same_point(f"chain {name}", gpu[name], cpu[name])
     for r in cpu.values():
@@ -1452,7 +1585,9 @@ def adversarial_phase(dev):
     with path_calls() as calls:
         gpu, gpu_walls = run_groups(dev)
     counts = launch_counts()
-    cpu, cpu_walls = run_groups("cpu")
+    with recording_nat_depths() as depths:
+        cpu, cpu_walls = run_groups("cpu")
+    print(depth_line("adversarial, every group", depths))
     for name in gpu:
         same_point(f"adversarial {name}", gpu[name], cpu[name])
     block = degradation_block([gpu[s.name] for s in specs])

@@ -409,6 +409,44 @@ def nat_insert(src_ip, src_port, alive, key_ip, key_port, exp, capacity,
     return mapped, stale_hit, key_ip, key_port, exp
 
 
+NAT_WAVE_CHUNK = 256  # kChunk in csrc/nf_chain.cu
+
+
+def nat_waves(src_ip, src_port, alive, capacity, chunk=NAT_WAVE_CHUNK):
+    """The order in which ``csrc/nf_chain.cu`` walks NAT's packets.
+
+    Packets (..., B).  Returns (..., B) int64 waves, 0 for a dead packet.
+    A live packet's wave is 1 + the largest wave of an earlier live packet
+    whose probe window ``[h, h + NAT_PROBE_DEPTH) mod C`` overlaps its own
+    (1 when there is none), counted within arrival-order chunks of
+    ``chunk`` packets, each chunk's waves following the last one's.  A
+    packet reads and writes only its window (``nat_insert``), so the
+    packets of one wave commute, and walking the waves in order, each in
+    any order, gives ``nat_insert``'s result.  Not on any path: the tests
+    and ``chip_smoke.py`` hold the kernel's schedule with it."""
+    probe = NAT_PROBE_DEPTH
+    h = nat_hash(src_ip, src_port, capacity).to(torch.int64)
+    wave = torch.zeros(h.shape, dtype=torch.int64, device=h.device)
+    done = torch.zeros(h.shape[:-1], dtype=torch.int64, device=h.device)
+    for c0 in range(0, h.shape[-1], chunk):
+        hc, live = h[..., c0:c0 + chunk], alive[..., c0:c0 + chunk]
+        n = hc.shape[-1]
+        d = torch.remainder(hc[..., None, :] - hc[..., :, None], capacity)
+        earlier = torch.ones(n, n, dtype=torch.bool, device=h.device).tril(-1)
+        # pred[..., i, j]: packet j is live, earlier than i, and overlaps it
+        pred = ((d < probe) | (d > capacity - probe)) & earlier \
+            & live[..., None, :]
+        pending, local, r = live.clone(), torch.zeros_like(hc), 0
+        while bool(pending.any()):
+            r += 1
+            ready = pending & ~(pred & pending[..., None, :]).any(-1)
+            local = torch.where(ready, r, local)
+            pending = pending & ~ready
+        wave[..., c0:c0 + n] = torch.where(live, local + done[..., None], 0)
+        done = done + local.amax(-1)
+    return wave
+
+
 class FwState(NamedTuple):
     """A ``fw`` stage's state: the blocked source addresses."""
 

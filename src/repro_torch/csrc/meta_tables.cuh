@@ -1,14 +1,15 @@
-// A pipe's three (M,) int32 metadata tables (expiry, generation, length)
-// copied into new tensors by one whole block. split_control.cu and
-// merge_stage.cu return new tables, as their plain versions do, and copy
-// them before any probe or free writes a slot; nf_chain.cu copies NAT's
-// (key_ip, key_port, exp) table into shared memory and out again with it.
+// Three int32 tables of m rows (a pipe's expiry, generation and length,
+// or a range of them) copied by one whole block. split_control.cu returns
+// new tables, as its plain version does, and copies them before any probe
+// writes a slot; merge_stage.cu stages its block's range of them in shared
+// memory and copies it out after the frees; nf_chain.cu copies NAT's
+// (key_ip, key_port, exp) table into shared memory (where the copy engine
+// cannot) and out again with it.
 //
-// One block per pipe leaves most of the card idle, so the copy is bound by
-// how many loads a block keeps in flight: every thread loads its share of
-// all three tables (16-byte vectors when every pointer is aligned) before
-// it stores any of it, so the copy costs about one trip to device memory
-// at M 4096 and 512 threads.
+// The copy is bound by how many loads a block keeps in flight: every
+// thread loads its share of all three tables (16-byte vectors when every
+// pointer is aligned) before it stores any of it, so the copy costs about
+// one trip to device memory at M 4096 and 512 threads.
 #pragma once
 
 #include <cstdint>

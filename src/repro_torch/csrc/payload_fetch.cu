@@ -41,8 +41,8 @@ __global__ void __launch_bounds__(kThreads)
                       int64_t r = ip[i];
                       if (r < 0) r += m;
                       const bool on = mp[i] != 0;
-                      return FetchRow{r < 0 ? 0 : (r >= m ? m - 1 : r), on,
-                                      on && r >= 0 && r < m};
+                      return FetchRow{r < 0 ? 0 : (r >= m ? m - 1 : r), i,
+                                      on, on && r >= 0 && r < m};
                     });
 }
 

@@ -1,10 +1,13 @@
 """merge_stage on the card: CUDA kernel ``csrc/merge_stage.cu``.
 
-Merge's whole control pass in one launch, one block per pipe: the tag CRC
-check of ``csrc/crc16.cuh``, the metadata validate/free pass in arrival
-order over rows staged in shared memory (in parallel for packets alone on
-their slot, by one lane with a bitmap of freed slots for packets that
-share one) and the gather-then-clear of ``csrc/payload_fetch.cuh``.  On
+Merge's whole control pass in one launch of P x N blocks, block (p, r)
+owning slots ``[r * span, (r + 1) * span)`` of pipe p (``slot_ranges``),
+the checked packets whose clamped tag names one of them and a share of
+the others (``packet_blocks``): the tag CRC check of
+``csrc/crc16.cuh``, the metadata validate/free pass in arrival order over
+the range's rows staged in shared memory (in parallel for packets alone on
+their slot, in turns across a warp's lanes for packets that share one)
+and the gather-then-clear of ``csrc/payload_fetch.cuh``.  On
 Merge's path it stands for the TPU kernels
 ``repro/kernels/crc16/kernel.py::crc16_kernel`` and
 ``repro/kernels/payload_fetch/kernel.py::payload_fetch_kernel`` and for
@@ -13,10 +16,11 @@ tables read and written once, the header fields read and the decisions
 written once, each matched row read and cleared once and the output rows
 written once.
 
-The bitmaps and staged rows take ``shared_bytes(B, M)`` bytes a pipe.
-Past ``MAX_SHARED`` they live in a device-memory scratch tensor of
-``scratch_words(B, M)`` int32 words a pipe and the same kernel works
-there, so every size the reference accepts runs in one launch.
+The bitmaps and staged rows take ``shared_bytes(B, M)`` bytes a block.
+Past ``MAX_SHARED`` (a batch past ~13,400 packets) they live in a
+device-memory scratch tensor of ``scratch_words(B, M)`` int32 words a
+block and the same kernel works there, so every size the reference
+accepts runs in one launch.
 
 ``merge_stage_cuda`` launches the kernel and raises on CPU tensors;
 ``merge_stage`` is the ``auto`` entry, which takes the plain version
@@ -37,6 +41,8 @@ from repro_torch.kernels.build import (check, launch_counter, library,
 COUNT = launch_counter("merge_stage")
 
 MAX_SHARED = 227 * 1024  # dynamic shared memory a Hopper block may use
+RANGES = 16              # blocks a pipe: 128 at 8 pipes fill the card
+MAX_SPAN = 8192          # slots a block owns at most (more blocks past it)
 
 # the decisions, in the order of the C interface's output pointers
 DECISIONS = (("matched", torch.bool), ("premature", torch.bool),
@@ -44,17 +50,48 @@ DECISIONS = (("matched", torch.bool), ("premature", torch.bool),
              ("is_drop_op", torch.bool), ("park_len", torch.int32))
 
 __all__ = ["COUNT", "MAX_SHARED", "merge_stage", "merge_stage_cuda",
-           "merge_stage_plain", "scratch_words", "shared_bytes"]
+           "merge_stage_plain", "packet_blocks", "scratch_words",
+           "shared_bytes", "slot_ranges"]
+
+
+def slot_ranges(m: int) -> tuple[int, int]:
+    """``(n, span)``: the kernel's blocks a pipe and the slots each owns,
+    block r the slots ``[r * span, min(M, (r + 1) * span))``.  ``RANGES``
+    blocks, more where a block would own over ``MAX_SPAN`` slots, fewer
+    where M has fewer slots; a span of 32 slots or more is whole bitmap
+    words, and the last range takes what is left of M."""
+    m = max(m, 1)
+    n = max(min(RANGES, m), -(-m // MAX_SPAN))
+    span = -(-m // n)
+    if span >= 32:
+        span = -(-span // 32) * 32
+    return -(-m // span), span
+
+
+def packet_blocks(checked, pp_ti, m: int):
+    """The block of its pipe that handles each packet, as the kernel
+    assigns them: a checked packet (alive, pp_valid, ENB 1 and a good
+    CRC: it may match and free a slot) the block that owns its clamped
+    slot; any other packet, which touches no slot, block ``i mod N`` by its
+    place i in the batch.  (..., B) tensors -> (..., B) int64."""
+    n, span = slot_ranges(m)
+    slot = pp_ti.to(torch.int64)
+    slot = torch.where(slot < 0, slot + m, slot).clamp(0, max(m, 1) - 1)
+    place = torch.arange(pp_ti.shape[-1], device=pp_ti.device) % n
+    return torch.where(checked, slot // span, place)
 
 
 def shared_bytes(b: int, m: int) -> int:
     """A block's dynamic shared memory, as ``csrc/merge_stage.cu`` sizes
-    it: three bitmaps of M bits and 17 bytes a packet."""
-    return 12 * ((m + 31) // 32) + 17 * b
+    it: two bitmaps of its range's slots (an even number of words each),
+    the expiry, generation and length of each of its slots, and 17 bytes
+    a packet."""
+    span = slot_ranges(m)[1]
+    return 8 * 2 * -(-span // 64) + 12 * span + 17 * b
 
 
 def scratch_words(b: int, m: int) -> int:
-    """int32 words of one pipe's region of the device-memory scratch that
+    """int32 words of one block's region of the device-memory scratch that
     takes the shared memory's place past ``MAX_SHARED`` (16-byte aligned)."""
     return -(-shared_bytes(b, m) // 16) * 4
 
@@ -65,7 +102,8 @@ def merge_stage_cuda(table, meta_exp, meta_clk, meta_len, alive, pp_valid,
     metadata (..., M) int32; header fields (..., B), on the card.  Returns
     ``((meta_exp, meta_clk, meta_len), d, parked (..., B, W), table)`` as
     ``merge_stage_plain`` does.  Past ``MAX_SHARED`` bytes of bitmaps and
-    staged rows the kernel works in a device-memory scratch tensor."""
+    staged rows a block the kernel works in a device-memory scratch
+    tensor."""
     *lead, m, w = table.shape
     b = alive.shape[-1]
     header = (alive, pp_valid, pp_enb, pp_op, pp_ti, pp_clk, pp_crc)
@@ -99,15 +137,16 @@ def merge_stage_cuda(table, meta_exp, meta_clk, meta_len, alive, pp_valid,
     pipes = math.prod(lead)
     if pipes == 0 or b == 0:  # nothing returns: the tables stand
         return tuple(meta), d, parked, table
+    blocks, span = slot_ranges(m)
     scratch = None
     if shared_bytes(b, m) > MAX_SHARED:
-        scratch = torch.empty((pipes, scratch_words(b, m)),
+        scratch = torch.empty((pipes * blocks, scratch_words(b, m)),
                               dtype=torch.int32, device=dev)
     rc = library().pp_merge_stage(
         table.data_ptr(), *(t.data_ptr() for t in meta + flags + fields),
         *(t.data_ptr() for t in new_meta),
         *(d[k].data_ptr() for k, _ in DECISIONS), parked.data_ptr(),
-        pipes, b, m, w, OP_DROP,
+        pipes, b, m, w, OP_DROP, blocks, span,
         None if scratch is None else scratch.data_ptr(), stream_handle(dev))
     check("merge_stage", rc)
     COUNT.launches += 1

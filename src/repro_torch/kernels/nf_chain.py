@@ -10,8 +10,11 @@ the TPU kernels ``repro/kernels/acl_match/kernel.py::acl_match_kernel`` and
 written once, the header fields the stages read (``NF_READS``) read once
 and those they write (``NF_WRITES``) written once, and the drops.
 
-The stages reach the kernel as descriptors of ``DESC_WORDS`` int64 words
-(kind, ``DESC_PTRS`` device pointers, ``DESC_VALS`` constants), at most
+NAT's walk runs in waves of packets whose probe windows are disjoint
+(``backend/ref.py::nat_waves`` is its schedule), 64 packets at a time,
+over arrival-order chunks of ``NAT_WAVE_CHUNK`` packets.  The stages reach
+the kernel as descriptors of ``DESC_WORDS`` int64 words (kind,
+``DESC_PTRS`` device pointers, ``DESC_VALS`` constants), at most
 ``MAX_STAGES`` a launch; a longer chain runs as consecutive launches over
 slices of it, each taking the last one's fields and drops.  A NAT table of
 at most ``MAX_SHARED`` bytes (12 per slot) is walked in shared memory, a
@@ -41,8 +44,9 @@ DESC_PTRS = 8        # device pointers of a stage descriptor
 DESC_VALS = 6        # constants of a stage descriptor
 DESC_WORDS = 1 + DESC_PTRS + DESC_VALS
 # dynamic shared memory for a staged NAT table: the block's 227 KB less
-# the kernel's static shared memory (a 1 KB rule tile)
-MAX_SHARED = 232448 - 2048
+# the kernel's static shared memory (kStaticShared: the wave schedule of a
+# chunk and a 1 KB rule tile), so capacities up to 17664 are staged
+MAX_SHARED = 232448 - 20480
 
 __all__ = ["COUNT", "MAX_STAGES", "nf_chain", "nf_chain_cuda",
            "nf_chain_plain"]

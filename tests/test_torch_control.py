@@ -295,6 +295,77 @@ def test_merge_stage_all_masked_touches_nothing():
 
 
 # --------------------------------------------------------------------------
+# merge_stage's kernel partition: blocks that each own a range of slots
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m", [1, 8, 12, 16, 31, 64, 100, 600, 4096, 4100,
+                               1 << 17, (1 << 17) + 1, 1 << 20])
+def test_merge_stage_slot_ranges_cover_the_table(m):
+    """``slot_ranges``: N blocks of ``span`` slots cover [0, M) with no
+    empty block; at most 8192 slots a block, whole bitmap words from 32
+    slots up; 16 blocks where M splits so, more only past 16 x 8192
+    slots; a block's bitmaps and 256 packets' staging fit in shared
+    memory up to M = 2**20."""
+    from repro_torch.kernels import merge_stage as MS
+    n, span = MS.slot_ranges(m)
+    assert (n - 1) * span < m <= n * span
+    assert span <= MS.MAX_SPAN
+    assert span < 32 or span % 32 == 0
+    assert n <= max(MS.RANGES, -(-m // MS.MAX_SPAN))
+    if m % (32 * MS.RANGES) == 0 and m <= MS.RANGES * MS.MAX_SPAN:
+        assert n == MS.RANGES
+    assert MS.shared_bytes(256, m) <= MS.MAX_SHARED
+    if m == 4096:
+        assert (n, span) == (16, 256)
+
+
+@pytest.mark.parametrize("b", [96, 256])
+@pytest.mark.parametrize("m", [64, 100, 4100])
+def test_merge_stage_by_slot_ranges_equals_the_whole_call(m, b):
+    """The kernel's partition holds the plain version: each block's
+    packets (``packet_blocks``: the checked ones whose clamped tag names a
+    slot of its range, and a share of the others) run through
+    ``merge_stage`` alone, the other packets dead, in reverse block order,
+    each on the tables the last one left, give each packet's decisions
+    and row and each range's metadata and payload rows of the whole call.
+    The case has duplicates, forged CRCs, negative and out-of-range tags;
+    M = 100 and 4100 are no multiple of N, and M = 64 and 100 give ranges
+    of 4 and 7 slots, narrower than a bitmap word."""
+    from repro_torch.backend import ref as R
+    from repro_torch.kernels import merge_stage as MS
+    rng = np.random.default_rng(3 * m + b)
+    meta, ptable, f = _merge_case(rng, m, b)
+    whole = _merge_port(meta, ptable, f)
+    _check_merge(whole, _merge_reference(m, meta, ptable, f, rng))
+    n, span = MS.slot_ranges(m)
+    t = {k: _t(f[k]) for k in _HEADER}
+    checked = (t["alive"] & t["pp_valid"] & (t["pp_enb"] == 1)
+               & (R.crc16_tag(t["pp_ti"], t["pp_clk"]) == t["pp_crc"]))
+    owner = MS.packet_blocks(checked, t["pp_ti"], m).numpy()
+    assert len(set(owner[checked.numpy()].tolist())) > 1
+    assert not checked.all()
+    wmeta, wd, wrows, wtable = whole
+    cur_meta, cur_table = meta, ptable
+    for r in reversed(range(n)):
+        mine = owner == r
+        fr = dict(f, alive=f["alive"] & mine)
+        gmeta, gd, grows, gtable = _merge_port(cur_meta, cur_table, fr)
+        for k in MERGE_KEYS:
+            assert torch.equal(gd[k][mine], wd[k][mine]), (r, k)
+        assert torch.equal(grows[mine], wrows[mine]), r
+        own = slice(r * span, min(m, (r + 1) * span))
+        for g, w in zip(gmeta, wmeta):
+            assert torch.equal(g[own], w[own]), r
+        assert torch.equal(gtable[own], wtable[own]), r
+        cur_meta = [g.numpy() for g in gmeta]
+        cur_table = gtable.numpy()
+    for g, w in zip(cur_meta, wmeta):
+        assert np.array_equal(g, w.numpy())
+    assert np.array_equal(cur_table, wtable.numpy())
+
+
+# --------------------------------------------------------------------------
 # the CUDA launchers' checks and bindings, reachable without a card
 # --------------------------------------------------------------------------
 
@@ -361,9 +432,10 @@ def test_merge_stage_binding_matches_its_signature(monkeypatch):
         table, *meta, flag, flag, z, z, z, z, z)
     assert [c[0] for c in calls] == ["pp_merge_stage"]
     args = calls[0][1]
-    assert len(args) == len(build.SIGNATURES["pp_merge_stage"]) == 28
-    assert args[21:26] == (1, b, m, W, OP_DROP)   # pipes, b, m, width, op
-    assert args[26] is None                       # shared memory: no scratch
+    assert len(args) == len(build.SIGNATURES["pp_merge_stage"]) == 30
+    # pipes, b, m, width, op, then the blocks a pipe and the slots of each
+    assert args[21:28] == (1, b, m, W, OP_DROP, *MS.slot_ranges(m))
+    assert args[28] is None                       # shared memory: no scratch
     assert MS.COUNT.launches == before + 1
     assert tab is table and tuple(parked.shape) == (1, b, W)
     assert [(k, d[k].dtype) for k in d] == list(MS.DECISIONS)
@@ -385,16 +457,17 @@ def test_merge_stage_cuda_raises_past_its_shared_memory():
 
 
 @pytest.mark.parametrize("pipes,b,m,past", [
-    (1, 256, 1 << 20, True),                  # the table's bitmaps
+    (1, 256, 1 << 20, False),                 # 128 blocks of 8192 slots
     (2, 227 * 1024 // 17 + 1, 16, True),      # the staged rows
-    (1, 256, 19008 * 32, False),              # 232448 B: at the limit
-    (1, 256, 19008 * 32 + 1, True),           # one bitmap word past it
+    (1, 13488, 4096, False),                  # 232432 B: at the limit
+    (1, 13489, 4096, True),                   # one packet past it
 ])
 def test_merge_stage_cuda_passes_device_scratch_past_its_shared_memory(
         monkeypatch, pipes, b, m, past):
-    """Past ``MAX_SHARED`` bytes a pipe the launcher hands the kernel a
-    device-memory scratch of ``scratch_words`` int32 words a pipe (16-byte
-    aligned) and still launches once; under it, a null scratch."""
+    """Past ``MAX_SHARED`` bytes a block the launcher hands the kernel a
+    device-memory scratch of ``scratch_words`` int32 words a block (16-byte
+    aligned, P x N blocks) and still launches once; under it, a null
+    scratch."""
     from repro_torch.kernels import merge_stage as MS
     calls, scratch = [], []
     _fake_library(monkeypatch, MS, calls)
@@ -416,11 +489,13 @@ def test_merge_stage_cuda_passes_device_scratch_past_its_shared_memory(
     MS.merge_stage_cuda(table, *meta, flag, flag, z, z, z, z, z)
     assert MS.COUNT.launches == before + 1
     args = calls[0][1]
+    blocks = MS.slot_ranges(m)[0]
     assert past == (MS.shared_bytes(b, m) > MS.MAX_SHARED)
     if past:
-        assert len(scratch) == 1 and args[26] == scratch[0].data_ptr()
-        assert tuple(scratch[0].shape) == (pipes, MS.scratch_words(b, m))
+        assert len(scratch) == 1 and args[28] == scratch[0].data_ptr()
+        assert tuple(scratch[0].shape) == (pipes * blocks,
+                                           MS.scratch_words(b, m))
         assert MS.scratch_words(b, m) % 4 == 0
         assert 4 * MS.scratch_words(b, m) >= MS.shared_bytes(b, m)
     else:
-        assert args[26] is None and not scratch
+        assert args[28] is None and not scratch

@@ -6,6 +6,7 @@ plain ``nat_insert`` against the reference's NAT ``lax.scan``, the chain
 against its NFs run one by one, and the CUDA launcher's descriptors and
 slicing, reachable without a card."""
 import ctypes
+import math
 
 import numpy as np
 import pytest
@@ -238,6 +239,158 @@ def test_nat_insert_window_wraps_at_the_end_of_the_table():
                  stale_hits=np.zeros((), np.int32))
     mapped = _insert_vs_reference(d, empty, cap, [lambda v: v]).numpy()
     assert (mapped >= 0).all() and (mapped - base < 8).any(), mapped
+
+
+# --------------------------------------------------------------------------
+# the kernel's NAT schedule: waves of packets whose probe windows are
+# disjoint (ref.nat_waves)
+# --------------------------------------------------------------------------
+
+def _flow_packets(rng, lead, b, flows, cap, alive_frac=0.85):
+    """(..., b) numpy packets whose (src_ip, src_port) come from ``flows``
+    flows, and a NAT table of ``cap`` slots with live, aged-out and free
+    slots whose keys come from the same flows."""
+    pool_ip = rng.integers(1, 1 << 30, flows).astype(np.int32)
+    pool_port = rng.integers(1024, 65536, flows).astype(np.int32)
+    per = [CV.numpy_packets(rng, b, PMAX, alive_frac=alive_frac)
+           for _ in range(math.prod(lead))]
+    d = {k: np.stack([p[k] for p in per]).reshape(lead + per[0][k].shape)
+         for k in per[0]}
+    pick = rng.integers(0, flows, lead + (b,))
+    d["src_ip"], d["src_port"] = pool_ip[pick], pool_port[pick]
+    slot_flow = rng.integers(0, flows, lead + (cap,))
+    kind = rng.integers(0, 3, lead + (cap,))
+    state = dict(
+        key_ip=np.where(kind < 2, pool_ip[slot_flow], -1).astype(np.int32),
+        key_port=np.where(kind < 2, pool_port[slot_flow], -1).astype(
+            np.int32),
+        exp=np.where(kind == 0, rng.integers(1, 3, lead + (cap,)), 0).astype(
+            np.int32),
+        stale_hits=np.zeros(lead, np.int32))
+    return d, state
+
+
+def _walk_by_waves(d, state, cap, waves):
+    """``R.nat_insert`` one packet at a time, wave after wave, each wave in
+    reverse arrival order, pipe by pipe: (mapped, stale_hit, key_ip,
+    key_port, exp) as the whole call returns them."""
+    nat = TNat(capacity=cap)
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
+    lead = t["src_ip"].shape[:-1]
+    mapped = torch.full(t["src_ip"].shape, -1, dtype=torch.int32)
+    stale = torch.zeros(t["src_ip"].shape, dtype=torch.bool)
+    tables = [torch.from_numpy(state[k].copy())
+              for k in ("key_ip", "key_port", "exp")]
+    for p in np.ndindex(*lead):
+        w = waves[p].tolist()
+        for i in sorted((i for i, v in enumerate(w) if v),
+                        key=lambda i: (w[i], -i)):
+            one = [t[k][p + (slice(i, i + 1),)]
+                   for k in ("src_ip", "src_port", "alive")]
+            m, s, *new = R.nat_insert(*one, *(x[p] for x in tables), cap,
+                                      nat.base_port, nat.max_exp)
+            mapped[p + (i,)], stale[p + (i,)] = m[0], s[0]
+            for x, n in zip(tables, new):
+                x[p] = n
+    return (mapped, stale, *tables)
+
+
+@pytest.mark.parametrize("pipes", [None, 2])
+@pytest.mark.parametrize("flows", [3, 40, 512])
+@pytest.mark.parametrize("cap", [8, 12, 16, 64, 4096])
+def test_walk_by_waves_equals_nat_insert_and_the_reference(cap, flows,
+                                                           pipes):
+    """Walking ``nat_waves``'s waves in order, each in reverse arrival
+    order, gives exactly ``nat_insert``'s mapped ports, stale hits and
+    tables, and the reference NAT's on the same numpy arrays: the packets
+    of one wave commute, as the kernel's parallel walk needs."""
+    rng = np.random.default_rng(cap * 1000 + flows + (pipes or 0))
+    lead = () if pipes is None else (pipes,)
+    d, state = _flow_packets(rng, lead, 96, flows, cap)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    waves = R.nat_waves(t["src_ip"], t["src_port"], t["alive"], cap)
+    assert torch.equal(waves > 0, t["alive"])
+    got = _walk_by_waves(d, state, cap, waves)
+    ts = {k: torch.from_numpy(v) for k, v in state.items()}
+    want = R.nat_insert(t["src_ip"], t["src_port"], t["alive"],
+                        ts["key_ip"], ts["key_port"], ts["exp"], cap,
+                        TNat().base_port, TNat().max_exp)
+    for name, g, w in zip(("mapped", "stale_hit", "key_ip", "key_port",
+                           "exp"), got, want):
+        assert torch.equal(g, w), name
+    per_pipe = ([lambda v: v] if pipes is None
+                else [lambda v, p=p: v[p] for p in range(pipes)])
+    assert torch.equal(_insert_vs_reference(d, state, cap, per_pipe),
+                       want[0])
+    if cap < 16:  # every pair of windows overlaps: one live packet a wave
+        live = t["alive"].sum(-1)
+        assert torch.equal(waves.amax(-1), live)
+
+
+def _flows_hashing_to(targets, cap, seed=11):
+    """One (src_ip, src_port) flow whose NAT hash is each target slot."""
+    rng = np.random.default_rng(seed)
+    ip = rng.integers(1, 1 << 30, 1 << 16).astype(np.int32)
+    port = rng.integers(1024, 65536, 1 << 16).astype(np.int32)
+    h = R.nat_hash(torch.from_numpy(ip), torch.from_numpy(port), cap).numpy()
+    picks = [int(np.flatnonzero(h == s)[0]) for s in targets]
+    return ip[picks], port[picks]
+
+
+def _waves(ip, port, alive, cap, chunk=R.NAT_WAVE_CHUNK):
+    return R.nat_waves(torch.from_numpy(np.asarray(ip, np.int32)),
+                       torch.from_numpy(np.asarray(port, np.int32)),
+                       torch.from_numpy(np.asarray(alive, bool)), cap,
+                       chunk).tolist()
+
+
+def test_nat_waves_hand_cases():
+    cap = 64
+    # one flow k times: depth k
+    assert _waves([7] * 10, [1234] * 10, [True] * 10, cap) == \
+        list(range(1, 11))
+    # windows at C - 3 and 2 overlap across the table's end; at C - 3 and
+    # 5 they touch nothing in common ((5 - (C - 3)) mod C = 8)
+    ip, port = _flows_hashing_to([cap - 3, 2, 5], cap)
+    assert _waves(ip[:2], port[:2], [True, True], cap) == [1, 2]
+    assert _waves(ip[::2], port[::2], [True, True], cap) == [1, 1]
+    # disjoint windows: one wave
+    ip, port = _flows_hashing_to([0, 8, 16, 40, 56], cap)
+    assert _waves(ip, port, [True] * 5, cap) == [1] * 5
+    # a dead packet takes no wave and holds no one back
+    assert _waves([7] * 3, [99] * 3, [True, False, True], cap) == [1, 0, 2]
+    assert _waves([7] * 3, [99] * 3, [False] * 3, cap) == [0, 0, 0]
+    # below 16 slots every pair of windows overlaps, distinct flows or not
+    for small in (8, 12):
+        ip, port = _flows_hashing_to(range(6), small)
+        assert _waves(ip, port, [True] * 6, small) == list(range(1, 7))
+    ip, port = _flows_hashing_to([0, 8], 16)  # 16 slots: two disjoint
+    assert _waves(ip, port, [True, True], 16) == [1, 1]
+    # chunks: the second chunk's waves follow the first one's depth, and a
+    # flow repeated across chunks goes on counting
+    assert _waves([7] * 300, [1] * 300, [True] * 300, cap) == \
+        list(range(1, 301))
+    ip, port = _flows_hashing_to([0, 8, 16, 24], cap)
+    waves = _waves(list(ip) * 2, list(port) * 2, [True] * 8, cap, chunk=4)
+    assert waves == [1] * 4 + [2] * 4
+    waves = _waves([5, 5, 5, 6], [1, 1, 1, 2], [True] * 4, 4096, chunk=2)
+    assert waves[:2] == [1, 2] and waves[2] == 3
+
+
+def test_nat_waves_with_a_pipe_axis_are_per_pipe():
+    rng = np.random.default_rng(4)
+    d, _ = _flow_packets(rng, (3,), 64, 40, 64)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    whole = R.nat_waves(t["src_ip"], t["src_port"], t["alive"], 64)
+    for p in range(3):
+        assert torch.equal(whole[p], R.nat_waves(
+            t["src_ip"][p], t["src_port"][p], t["alive"][p], 64))
+
+
+def test_kernel_wave_chunk_is_the_plain_versions():
+    from pathlib import Path
+    src = (Path(R.__file__).parent.parent / "csrc" / "nf_chain.cu").read_text()
+    assert f"constexpr int kChunk = {R.NAT_WAVE_CHUNK};" in src
 
 
 # --------------------------------------------------------------------------
