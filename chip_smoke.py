@@ -22,7 +22,13 @@ Phases (any failure raises, so the script exits non-zero):
    duplicate tags and a second match with pp_clk 0 after a free; and for
    the kernel's blocks of slot ranges, contested slots on both sides of a
    range boundary, M 4100 (15 ranges of 288 slots) and every packet on one
-   slot (each case prints its blocks a pipe, N).  The NF chain's kernel
+   slot (each case prints its blocks a pipe, N).  Split's kernel also at
+   1 x 4096 packets over M 64 (each slot walked dozens of times, also
+   against ``ref.split_rounds``), M 4100, TI at M - 1 with CLK at its
+   wrap, and past its shared memory (its packet lists in a device-memory
+   scratch) at 1 x 17879 packets over M 4096 and at 1 x 11000 over M 2**20
+   (no slot named twice), both also against ``split_rounds``.  The NF
+   chain's kernel
    (``nf_chain``) is held exactly against its plain version (headers,
    drops, NAT tables, ``stale_hits``, states) on FW -> NAT at 8 pipes x
    256 packets, FW -> NAT -> LB with a per-pipe ``lb_up`` mix, NAT alone
@@ -43,9 +49,11 @@ Phases (any failure raises, so the script exits non-zero):
    wrapper call must add exactly one
    launch to its kernel's count (``nf_chain`` one per 8 stages,
    ``payload_store`` one per tile).  Each
-   kernel is timed (median of 30 launches, CUDA events) beside its plain
-   version, one PyTorch library call where one computes the same
-   function, and its bound: the larger of the bytes it must move over
+   kernel is timed (median of 30 launches, CUDA events; ``split_control``
+   also at the stream's 1 x 256 and 1 x 64 and the chain's 2 x 256,
+   ``SPLIT_SHAPES``) beside its plain version, one PyTorch library call
+   where one computes the same function, and its bound: the larger of
+   the bytes it must move over
    3.35 TB/s and its 32-bit operations over 67 T/s.
 3. The quickstart flow at full width (enterprise, 256 packets, default
    ParkConfig, Firewall -> NAT): Split, chain and Merge on the card,
@@ -96,7 +104,8 @@ Phases (any failure raises, so the script exits non-zero):
    time.  One traced call of
    ``split_control``, ``merge_stage``, ``payload_store``, ``nf_chain`` and
    of ``paged_attention`` (engine and batched shapes) must each run
-   exactly one device kernel; its duration goes into the kernels line
+   exactly one device kernel (``split_control`` at each of
+   ``SPLIT_SHAPES``); its duration goes into the kernels line
    (``profiler_ms``).
 8. Stream: the streaming driver at the reference streaming bench's full
    geometry: a ``SyntheticSource`` of 1024 steps x 256 packets (pmax 2048,
@@ -639,6 +648,37 @@ def same_all(label, got, want) -> int:
                for k, (g, v) in enumerate(zip(got, want)))
 
 
+# split_control's shapes on the paths (M 4096): pipes8's, the stream's
+# fresh packets and its 0.25 recirculation lane's retries (352-byte rows),
+# and a chain group's (max_exp 4)
+SPLIT_SHAPES = (("", 8, 256, dict(max_exp=2)),
+                ("1x256 W352", 1, 256, dict(max_exp=2, recirculation=True)),
+                ("1x64 W352", 1, 64, dict(max_exp=2, recirculation=True)),
+                ("2x256 chain", 2, 256, dict(max_exp=4)))
+
+
+def split_shapes(gen, dev) -> dict:
+    """``split_args`` at each of ``SPLIT_SHAPES``, by label ("" is
+    pipes8's 8 x 256, drawn from ``gen``; the others from a generator of
+    their own, so that they leave ``gen``'s later draws as they were)."""
+    from repro_torch.core.park import ParkConfig
+    own = torch.Generator().manual_seed(SEED + 6)
+    return {label: split_args(gen if not label else own,
+                              ParkConfig(capacity=4096, **kw), (pipes,), b,
+                              dev)
+            for label, pipes, b, kw in SPLIT_SHAPES}
+
+
+def split_bound(args) -> dict:
+    """``split_control``'s bound on ``args``: the tables and registers read
+    and written once (they come out as new tensors), 5 bytes in and 20 out
+    per packet; the CRC's operations."""
+    m, ti, alive = args[0], args[5], args[10]
+    n = alive.numel()
+    return dict(bound_bytes=ti.numel() * (24 * m + 16) + n * 25,
+                bound_ops=n * CRC16_OPS)
+
+
 def check_control(gen, dev) -> tuple[int, int]:
     """Phase 2 for Split's and Merge's control kernels: every output
     against the plain version on the same inputs, exactly."""
@@ -648,20 +688,54 @@ def check_control(gen, dev) -> tuple[int, int]:
 
     e_split = e_merge = 0
     base = ParkConfig(capacity=4096, max_exp=2)
-    for label, cfg, lead, b, frac in (
-            ("8x256 M4096 W160", base, (8,), 256, 0.9),
+    m64 = ParkConfig(capacity=64, max_exp=2)
+    scratch_b = split_control.MAX_SHARED // 13 + 1
+    # the cases of the slot-range design draw from a generator of their
+    # own, so that they leave ``gen``'s later draws as they were
+    own = torch.Generator().manual_seed(SEED + 7)
+    for g, (label, cfg, lead, b, frac, plain) in [(gen, c) for c in (
+            ("8x256 M4096 W160", base, (8,), 256, 0.9, "loop"),
             ("8x256 M4096 W352",
              ParkConfig(capacity=4096, max_exp=2, recirculation=True),
-             (8,), 256, 0.9),
-            ("1x256 M64 (batch larger than the table)",
-             ParkConfig(capacity=64, max_exp=2), (1,), 256, 0.9),
-            ("no pipe axis, 264 packets", base, (), 264, 0.9),
-            ("8x256 all masked", base, (8,), 256, 0.0)):
-        args = split_args(gen, cfg, lead, b, dev, frac)
-        e_split = max(e_split, same_all(
-            f"split_control {label}",
-            once("split_control", split_control.split_control_cuda, *args),
-            R.split_control(*args)))
+             (8,), 256, 0.9, "loop"),
+            ("1x256 M64 (batch larger than the table)", m64, (1,), 256, 0.9,
+             "loop"),
+            ("no pipe axis, 264 packets", base, (), 264, 0.9, "loop"),
+            ("8x256 all masked", base, (8,), 256, 0.0, "loop"))] + [
+            (own, c) for c in (
+            ("1x4096 M64 (each slot walked dozens of times)", m64, (1,), 4096,
+             1.0, "both"),
+            ("8x256 M4100 (a ragged last range)",
+             ParkConfig(capacity=4100, max_exp=2), (8,), 256, 0.9, "loop"),
+            ("8x256 M4096, TI at M-1 and CLK at the wrap", base, (8,), 256,
+             0.9, "loop"),
+            (f"1x{scratch_b} M4096 (lists in device-memory scratch)", base,
+             (1,), scratch_b, 0.9, "both"),
+            ("1x11000 M2^20 (distinct slots, lists in device-memory "
+             "scratch)", ParkConfig(capacity=1 << 20, max_exp=2), (1,),
+             11000, 0.9, "both"))]:
+        args = split_args(g, cfg, lead, b, dev, frac)
+        if "at the wrap" in label:
+            args[5].fill_(cfg.capacity - 1)
+            args[6].fill_(cfg.max_clk - 1)
+        got = once("split_control", split_control.split_control_cuda, *args)
+        plains = dict(loop=(R.split_control,), rounds=(R.split_rounds,),
+                      both=(R.split_control, R.split_rounds))[plain]
+        for fn in plains:
+            e_split = max(e_split, same_all(
+                f"split_control {label} vs {fn.__name__}", got, fn(*args)))
+        n, span = split_control.slot_ranges(cfg.capacity)
+        scratch = split_control.shared_bytes(b, cfg.capacity) \
+            > split_control.MAX_SHARED
+        if scratch != ("scratch" in label):
+            raise AssertionError(
+                f"split_control {label}: "
+                f"{split_control.shared_bytes(b, cfg.capacity)} B a block")
+        print(f"split_control {label}: exact vs "
+              f"{' and '.join(fn.__name__ for fn in plains)}; N {n} blocks a "
+              f"pipe of {span} slots, {int(got[1]['enb'].sum())} parked, "
+              f"{int(got[1]['evicted'].sum())} evicted, lists in "
+              f"{'device' if scratch else 'shared'} memory")
     for label, lead, b, m, w, corrupt, masked, plant in (
             ("8x256 M4096 W160", (8,), 256, 4096, 160, False, False, None),
             ("8x256 M4096 W352", (8,), 256, 4096, 352, False, False, None),
@@ -916,9 +990,9 @@ def time_kernels(dev) -> dict:
     ``split_args`` / ``merge_args`` inputs, max_exp 2; the NF chain FW ->
     NAT at capacity 4096 on ``nf_chain_inputs``); maglev, and the NF chain
     FW -> NAT -> LB, at the chain path's 2 pipes x 256 packets with the
-    shared 251-entry table and 8 backends."""
+    shared 251-entry table and 8 backends; ``split_control`` also at the
+    stream's and the chain's shapes (``SPLIT_SHAPES``)."""
     from repro_torch.backend import ref as R
-    from repro_torch.core.park import ParkConfig
     from repro_torch.kernels import acl_match, crc16, maglev, payload_fetch
     from repro_torch.kernels import merge_stage, nf_chain, payload_store
     from repro_torch.kernels import split_control
@@ -969,16 +1043,11 @@ def time_kernels(dev) -> dict:
         library_ms=None,
         bound_bytes=matched * w * 2 + n * w + n * 5, bound_ops=0)
 
-    cfg = ParkConfig(capacity=m, max_exp=2)
-    args = split_args(gen, cfg, (pipes,), b, dev)
-    rows["split_control"] = dict(
-        ms=device_ms(lambda: split_control.split_control_cuda(*args)),
-        plain_ms=device_ms(lambda: R.split_control(*args)),
-        library_ms=None,
-        # the tables and registers read and written once (they come out
-        # as new tensors), 5 bytes in and 20 out per packet
-        bound_bytes=pipes * (24 * m + 16) + n * 25,
-        bound_ops=n * CRC16_OPS)
+    for label, args in split_shapes(gen, dev).items():
+        rows[f"split_control {label}".strip()] = dict(
+            ms=device_ms(lambda: split_control.split_control_cuda(*args)),
+            plain_ms=device_ms(lambda: R.split_control(*args)),
+            library_ms=None, **split_bound(args))
 
     margs = merge_args(gen, (pipes,), b, m, w, dev)
     _, d, _, _ = R.merge_stage(margs[0].clone(), *margs[1:])
@@ -1120,18 +1189,17 @@ def device_busy(run, dev) -> dict:
 def one_kernel_per_call(dev) -> dict:
     """One traced call of ``payload_store``, ``split_control``,
     ``merge_stage`` and ``nf_chain`` (8 pipes x 256 packets, M 4096, W 160;
-    FW -> NAT at capacity 4096) and of ``paged_attention`` (engine and
+    FW -> NAT at capacity 4096; ``split_control`` also at each of
+    ``SPLIT_SHAPES``) and of ``paged_attention`` (engine and
     batched shapes), after a warm call, must each run exactly one device
     kernel: no fill, no scratch zeroing, no copy, no second pass.  Returns
     each kernel's duration by the profiler, in ms."""
-    from repro_torch.core.park import ParkConfig
     from repro_torch.kernels import (merge_stage, nf_chain, paged_attention,
                                      payload_store, split_control)
 
     gen = torch.Generator().manual_seed(SEED + 5)
     t, p, i, e = store_inputs(gen, 8, 256, 4096, 160, dev)
-    sargs = split_args(gen, ParkConfig(capacity=4096, max_exp=2), (8,), 256,
-                       dev)
+    sargs = split_shapes(gen, dev)
     margs = merge_args(gen, (8,), 256, 4096, 160, dev, corrupt=True)
     _, nf_fields, stages = nf_chain_inputs(gen, ("fw", "nat"), (8,), 256,
                                            4096, dev)
@@ -1140,8 +1208,9 @@ def one_kernel_per_call(dev) -> dict:
     dead = (torch.zeros_like(nf_fields[0]),) + nf_fields[1:]
     runs = {"payload_store": lambda d: payload_store.payload_store_cuda(
                 t, p, i, e),
-            "split_control": lambda d: split_control.split_control_cuda(
-                *sargs),
+            **{f"split_control {label}".strip():
+               lambda d, args=args: split_control.split_control_cuda(*args)
+               for label, args in sargs.items()},
             "merge_stage": lambda d: merge_stage.merge_stage_cuda(*margs),
             "nf_chain": lambda d: nf_chain.nf_chain_cuda(nf_fields, stages),
             "nf_chain, every packet dead": lambda d: nf_chain.nf_chain_cuda(
@@ -2084,6 +2153,11 @@ def main() -> int:
                               for k in keys + ("gather_ms",)}
         if name == "nf_chain":
             row["chain"] = {k: times["nf_chain chain"][k] for k in keys}
+        if name == "split_control":  # the stream's and the chain's shapes
+            row["shapes"] = {
+                label: dict(profiler_ms=durations[f"{name} {label}"],
+                            **{k: times[f"{name} {label}"][k] for k in keys})
+                for label, *_ in SPLIT_SHAPES if label}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card)

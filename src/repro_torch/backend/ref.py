@@ -238,6 +238,61 @@ def split_control(m, max_exp, max_clk, min_park_len, pass_bytes, tbl_idx,
     return regs + tuple(meta.unbind(-1)), d
 
 
+def split_rounds(m, max_exp, max_clk, min_park_len, pass_bytes, tbl_idx,
+                 clk, meta_exp, meta_clk, meta_len, alive, payload_len):
+    """``split_control``'s result in the order ``csrc/split_control.cu``
+    probes: a packet with running count k touches only slot (TI + k) mod M,
+    so the eligible packets of k in (jM, (j + 1)M] name distinct slots and
+    round j probes them all at once, one gather and one scatter; the
+    rounds run j = 0 .. ceil(total / M) - 1.  The kernel's per-slot walk
+    takes each slot's packets in the same order (k, k + M, ...).  Same
+    arguments and result as ``split_control``.  Not on any path: the tests
+    and ``chip_smoke.py`` hold the kernel's schedule with it."""
+    plen = payload_len
+    eligible = alive & (plen >= min_park_len)
+    k = torch.cumsum(eligible.to(torch.int64), dim=-1)
+    ti0 = tbl_idx.to(torch.int64)[..., None]
+    clk0 = clk.to(torch.int64)[..., None]
+    ti_n = torch.remainder(ti0 + k, m)
+    clk_n = torch.where(
+        k > 0, torch.remainder(clk0 - 1 + k, max_clk - 1) + 1, clk0)
+    park_len = torch.clamp(plen, max=pass_bytes)
+
+    # row M takes the scatters of the packets that a round does not probe
+    meta = torch.stack([meta_exp, meta_clk, meta_len], dim=-1)
+    meta = torch.cat([meta, torch.zeros_like(meta[..., :1, :])], dim=-2)
+    enb = torch.zeros_like(eligible)
+    evicted = torch.zeros_like(eligible)
+    available = torch.zeros_like(eligible)
+    total = int(k[..., -1].max()) if k.numel() else 0
+    for j in range(-(-total // m)):
+        on = eligible & (k > j * m) & (k <= (j + 1) * m)
+        exp_pre, clk_cur, len_cur = _rows_of(meta, ti_n).unbind(-1)
+        avail = exp_pre <= 1
+        claim = on & avail
+        row = torch.stack([
+            torch.where(avail, max_exp, exp_pre - 1),
+            torch.where(avail, clk_n, clk_cur),
+            torch.where(avail, park_len, len_cur)], dim=-1)
+        slot = torch.where(on, ti_n, m)
+        meta.scatter_(-2, slot[..., None].expand(slot.shape + (3,)),
+                      row.to(torch.int32))
+        enb = enb | claim
+        evicted = evicted | (on & (exp_pre == 1))
+        available = available | (on & avail)
+    d = dict(
+        enb=enb, ti=ti_n.to(torch.int32), clk=clk_n.to(torch.int32),
+        evicted=evicted,
+        skip_occupied=eligible & ~available,
+        skip_small=alive & (plen < min_park_len),
+        park_len=torch.where(enb, park_len, 0).to(torch.int32),
+        crc=crc16_tag(ti_n.to(torch.int32), clk_n.to(torch.int32)),
+    )
+    regs = (d["ti"][..., -1] if alive.shape[-1] else tbl_idx,
+            d["clk"][..., -1] if alive.shape[-1] else clk)
+    return regs + tuple(meta[..., :m, :].unbind(-1)), d
+
+
 def merge_stage(table, meta_exp, meta_clk, meta_len, alive, pp_valid,
                 pp_enb, pp_op, pp_ti, pp_clk, pp_crc):
     """Merge's tag check, sequential metadata validation/free pass (Alg. 2

@@ -1,15 +1,15 @@
 // Three int32 tables of m rows (a pipe's expiry, generation and length,
-// or a range of them) copied by one whole block. split_control.cu returns
-// new tables, as its plain version does, and copies them before any probe
-// writes a slot; merge_stage.cu stages its block's range of them in shared
-// memory and copies it out after the frees; nf_chain.cu copies NAT's
-// (key_ip, key_port, exp) table into shared memory (where the copy engine
-// cannot) and out again with it.
+// or a range of them) copied by one whole block. split_control.cu stages
+// its block's range of them in shared memory (each slot's walker then
+// writes the slot's row into the new tables); merge_stage.cu stages its
+// block's range in shared memory and copies it out after the frees;
+// nf_chain.cu copies NAT's (key_ip, key_port, exp) table into shared
+// memory (where the copy engine cannot) and out again with it.
 //
 // The copy is bound by how many loads a block keeps in flight: every
 // thread loads its share of all three tables (16-byte vectors when every
 // pointer is aligned) before it stores any of it, so the copy costs about
-// one trip to device memory at M 4096 and 512 threads.
+// one trip to device memory.
 #pragma once
 
 #include <cstdint>

@@ -48,7 +48,7 @@ SIGNATURES = {
                            _i32, _i64, _i32, _i32, _i32, _i32, _i32, _i32,
                            _i32, _i32, _i32, _f32, _vp),
     "pp_split_control": (_vp,) * 20 + (_i64, _i64, _i64, _i64, _i32, _i32,
-                                       _i32, _vp),
+                                       _i32, _i64, _i64, _vp, _vp),
     "pp_merge_stage": (_vp,) * 21 + (_i64, _i64, _i64, _i64, _i32, _i64,
                                      _i64, _vp, _vp),
     "pp_nf_chain": (_vp,) * 19 + (_i32, _i64, _i64, _i64, _vp),

@@ -55,8 +55,9 @@ __all__ = ["COUNT", "MAX_SHARED", "merge_stage", "merge_stage_cuda",
 
 
 def slot_ranges(m: int) -> tuple[int, int]:
-    """``(n, span)``: the kernel's blocks a pipe and the slots each owns,
-    block r the slots ``[r * span, min(M, (r + 1) * span))``.  ``RANGES``
+    """``(n, span)``: the blocks a pipe of this kernel and of
+    ``csrc/split_control.cu`` and the slots each owns, block r the slots
+    ``[r * span, min(M, (r + 1) * span))``.  ``RANGES``
     blocks, more where a block would own over ``MAX_SPAN`` slots, fewer
     where M has fewer slots; a span of 32 slots or more is whole bitmap
     words, and the last range takes what is left of M."""

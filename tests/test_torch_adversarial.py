@@ -258,8 +258,8 @@ def test_failover_gate_the_reference_fails_fails_alike_in_the_port():
 def test_family_reaches_no_sequential_kernel_branch(port_points,
                                                     full_points):
     """Counted on the tiny and the full points: no Split call has more
-    eligible packets than slots (``csrc/split_control.cu``'s one-thread
-    walk) and no Merge call has a contested slot
+    eligible packets than slots (``csrc/split_control.cu``'s lists and
+    per-slot walk) and no Merge call has a contested slot
     (``csrc/merge_stage.cu``'s walk).  The storm spoofs sources and
     shrinks packets but writes no PayloadPark tag.  At full geometry the
     first also holds by construction: no point recirculates and a Split

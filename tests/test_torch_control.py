@@ -149,6 +149,187 @@ def test_split_control_with_pipe_axis_matches_per_pipe_reference(m):
 
 
 # --------------------------------------------------------------------------
+# split_control's kernel schedule: rounds of distinct slots, and blocks
+# that each own a range of slots
+# --------------------------------------------------------------------------
+
+
+def _rounds_case(name):
+    """(cfg, m, regs, meta, pkts) of one edge case of the per-slot walk,
+    the registers and packets with a leading pipe axis of 3 for
+    ``pipe axis``."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    cfg, m, b = dict(max_exp=2, max_clk=1 << 16), 64, 48
+    if name == "heavy wrap":  # each slot probed ~60 times
+        cfg, m, b = dict(max_exp=3, max_clk=1 << 16), 16, 1024
+    if name == "pipe axis":
+        cfg = SPLIT_CFGS["exp3 clk7"]
+        cases = [_split_case(rng, 16, 96, cfg) for _ in range(3)]
+        regs = [np.array([c[0][i] for c in cases], np.int32) for i in (0, 1)]
+        meta = [np.stack([c[1][i] for c in cases]) for i in range(3)]
+        pkts = {k: np.stack([c[2][k] for c in cases]) for k in cases[0][2]}
+        return cfg, 16, regs, meta, pkts
+    regs, meta, pkts = _split_case(rng, m, b, cfg)
+    if name == "heavy wrap":
+        pkts["payload_len"] = rng.integers(100, 400, b).astype(np.int32)
+    if name == "TI at M-1":
+        regs = (m - 1, regs[1])
+    if name == "CLK one short of max_clk":
+        regs = (regs[0], cfg["max_clk"] - 1)
+    if name == "all masked":
+        pkts["alive"][:] = False
+    if name == "ineligible before the first eligible":
+        pkts["alive"][:5] = [False, True, True, False, True]
+        pkts["payload_len"][:5] = [300, 10, 159, 300, 300]
+    return cfg, m, regs, meta, pkts
+
+
+ROUNDS_CASES = ("distinct slots", "heavy wrap", "TI at M-1",
+                "CLK one short of max_clk", "all masked",
+                "ineligible before the first eligible", "pipe axis")
+
+
+@pytest.mark.parametrize("name", ROUNDS_CASES)
+def test_split_rounds_equals_the_loop_and_the_reference(name):
+    """``ref.split_rounds``, the order of the kernel's per-slot walk,
+    equals the plain loop and the reference's ``_split_control`` +
+    ``crc16_tag`` bit for bit (per pipe where there is a pipe axis)."""
+    from repro_torch.backend import ref as R
+    cfg, m, regs, meta, pkts = _rounds_case(name)
+    pcfg = ParkConfig(capacity=m, **cfg)
+    args = (m, cfg["max_exp"], cfg["max_clk"], pcfg.min_park_len,
+            pcfg.pass_bytes, _t(np.int32(regs[0])), _t(np.int32(regs[1])),
+            *map(_t, meta), _t(pkts["alive"]), _t(pkts["payload_len"]))
+    got_state, got = R.split_rounds(*args)
+    loop_state, loop = R.split_control(*args)
+    for i, (g, w) in enumerate(zip(got_state, loop_state)):
+        assert g.dtype == w.dtype and torch.equal(g, w), f"state {i}"
+    assert list(got) == list(loop)
+    for k in got:
+        assert got[k].dtype == loop[k].dtype and torch.equal(got[k],
+                                                             loop[k]), k
+    rng = np.random.default_rng(7)
+    pipes = range(len(regs[0])) if np.ndim(regs[0]) else [None]
+    for p in pipes:
+        at = (lambda x: x) if p is None else (lambda x: x[p])
+        want_state, want = _split_reference(
+            m, cfg, (at(regs[0]), at(regs[1])), [at(x) for x in meta],
+            {k: at(v) for k, v in pkts.items()}, rng)
+        for i, (g, w) in enumerate(zip(got_state, want_state)):
+            _same(at(g), w, f"pipe {p} state {i}")
+        for k in got:
+            _same(at(got[k]), want[k], f"pipe {p} {k}")
+    e = pkts["alive"] & (pkts["payload_len"] >= pcfg.min_park_len)
+    if name == "heavy wrap":
+        assert e.sum() > 40 * m and got["evicted"].any() \
+            and got["skip_occupied"].any()
+    if name == "all masked":
+        assert not got["enb"].any()
+    if name == "ineligible before the first eligible":
+        assert not e[:4].any() and e[4]
+        assert got["ti"][:4].tolist() == [regs[0]] * 4
+        assert got["clk"][:4].tolist() == [regs[1]] * 4
+
+
+def _kernel_model(m, cfg, regs, meta, pkts):
+    """``csrc/split_control.cu`` for one pipe, as its blocks share out the
+    work: block r of ``slot_ranges(m)`` walks the packets of each slot it
+    owns, k = k0, k0 + M, ... (``(c)``), and writes the tag of the packets
+    i with i mod N = r and the decisions of those of them that are not
+    eligible (``(d)``).  Returns the outputs and, per output element, the
+    blocks that wrote it."""
+    from repro_torch.kernels.merge_stage import slot_ranges
+    pcfg = ParkConfig(capacity=m, **cfg)
+    n, span = slot_ranges(m)
+    ti0, clk0 = int(regs[0]), int(regs[1])
+    alive, plen = pkts["alive"], pkts["payload_len"]
+    b = len(alive)
+    e = alive & (plen >= pcfg.min_park_len)
+    k = np.cumsum(e)                             # (b) the block scan
+    total = int(k[-1]) if b else 0
+    pos = np.flatnonzero(e)                      # pos[k - 1] = i
+    park = np.minimum(plen, pcfg.pass_bytes)
+
+    def clock(kk):
+        return (clk0 - 1 + kk) % (cfg["max_clk"] - 1) + 1 if kk else clk0
+
+    crc = _crc((ti0 + k) % m, [clock(int(kk)) for kk in k])
+    out = {key: np.zeros(b, np.int64) for key in SPLIT_KEYS + ("crc",)}
+    wrote = {key: [[] for _ in range(b)] for key in out}
+    rows = [[] for _ in range(m)]
+    tables = [np.array(t) for t in meta]
+    for r in range(n):
+        for s in range(r * span, min(m, (r + 1) * span)):   # (c)
+            ex, g, ln = (int(t[s]) for t in meta)
+            kk = (s - ti0 - 1) % m + 1
+            while kk <= total:
+                i = pos[kk - 1]
+                avail = ex <= 1
+                for key, v in (("enb", avail), ("evicted", ex == 1),
+                               ("skip_occupied", not avail),
+                               ("park_len", park[i] if avail else 0)):
+                    out[key][i] = v
+                    wrote[key][i].append(r)
+                ex, g, ln = ((cfg["max_exp"], clock(kk), park[i]) if avail
+                             else (ex - 1, g, ln))
+                kk += m
+            for t, v in zip(tables, (ex, g, ln)):
+                t[s] = v
+            rows[s].append(r)
+        for i in range(r, b, n):                              # (d)
+            kk = int(k[i])
+            ti, c = (ti0 + kk) % m, clock(kk)
+            fields = {"ti": ti, "clk": c, "crc": crc[i],
+                      "skip_small": alive[i] and not e[i]}
+            if not e[i]:
+                fields.update(enb=0, evicted=0, skip_occupied=0,
+                              park_len=0)
+            for key, v in fields.items():
+                out[key][i] = v
+                wrote[key][i].append(r)
+    regs_out = ((ti0 + total) % m, clock(total))
+    return regs_out, tables, out, wrote, rows, (n, span)
+
+
+@pytest.mark.parametrize("m,b", [(4096, 256), (4100, 300), (16, 1024)])
+def test_split_control_blocks_write_each_output_once(m, b):
+    """The kernel's ownership: every decision and tag of every packet is
+    written by exactly one block (the owner of its slot for an eligible
+    packet's decisions, block i mod N for the rest), every table row once
+    by its owner, and what the blocks write is the plain version's
+    result.  M 4100 has a ragged last range; M 16 under 1024 packets walks
+    each slot ~30 times."""
+    from repro_torch.backend import ref as R
+    cfg = dict(max_exp=3, max_clk=1 << 16)
+    rng = np.random.default_rng(m + b)
+    regs, meta, pkts = _split_case(rng, m, b, cfg)
+    regs_out, tables, out, wrote, rows, (n, span) = _kernel_model(
+        m, cfg, regs, meta, pkts)
+    pcfg = ParkConfig(capacity=m, **cfg)
+    e = pkts["alive"] & (pkts["payload_len"] >= pcfg.min_park_len)
+    slot_owner = ((regs[0] + np.cumsum(e)) % m) // span
+    for key, per_packet in wrote.items():
+        for i, blocks in enumerate(per_packet):
+            want = slot_owner[i] if e[i] and key in (
+                "enb", "evicted", "skip_occupied", "park_len") else i % n
+            assert blocks == [want], (key, i, blocks)
+    assert rows == [[s // span] for s in range(m)]
+    assert len({s // span for s in range(m)}) == n
+    want_state, want = R.split_control(
+        m, cfg["max_exp"], cfg["max_clk"], pcfg.min_park_len,
+        pcfg.pass_bytes, _t(np.int32(regs[0])), _t(np.int32(regs[1])),
+        *map(_t, meta), _t(pkts["alive"]), _t(pkts["payload_len"]))
+    assert [int(x) for x in want_state[:2]] == list(regs_out)
+    for t, w in zip(tables, want_state[2:]):
+        assert np.array_equal(t, w.numpy())
+    for key in out:
+        assert np.array_equal(out[key], want[key].numpy().astype(np.int64)), \
+            key
+    if m == 16:
+        assert e.sum() > 30 * m
+
+
+# --------------------------------------------------------------------------
 # merge_stage
 # --------------------------------------------------------------------------
 
@@ -408,13 +589,79 @@ def test_split_control_binding_matches_its_signature(monkeypatch):
         m, 2, 1 << 16, 160, 160, z, z, *meta, alive, plen)
     assert [c[0] for c in calls] == ["pp_split_control"]
     args = calls[0][1]
-    assert len(args) == len(build.SIGNATURES["pp_split_control"]) == 28
-    # pipes, b, m, max_clk, max_exp, min_park_len, pass_bytes
-    assert args[20:27] == (2, b, m, 1 << 16, 2, 160, 160)
+    assert len(args) == len(build.SIGNATURES["pp_split_control"]) == 31
+    # pipes, b, m, max_clk, max_exp, min_park_len, pass_bytes, then the
+    # blocks a pipe and the slots of each
+    assert args[20:29] == (2, b, m, 1 << 16, 2, 160, 160,
+                           *SC.slot_ranges(m))
+    assert args[29] is None                       # shared memory: no scratch
     assert SC.COUNT.launches == before + 1          # one launch per call
     assert tuple(ti.shape) == (2,) and tuple(new_meta[0].shape) == (2, m)
     assert [(k, d[k].dtype) for k in d] == list(SC.DECISIONS)
     assert all(tuple(v.shape) == (2, b) for v in d.values())
+
+
+@pytest.mark.parametrize("pipes,b,m,past", [
+    (8, 256, 4096, False),                    # pipes8: 16 blocks a pipe
+    (1, 17641, 4096, False),                  # 232405 B: at the limit
+    (1, 17642, 4096, True),                   # one packet past it
+    (2, 11000, 1 << 20, True),                # 8192-slot ranges
+])
+def test_split_control_cuda_passes_device_scratch_past_its_shared_memory(
+        monkeypatch, pipes, b, m, past):
+    """Past ``MAX_SHARED`` bytes a block (Hopper's 227 KB less the scan's
+    static warp sums) the launcher hands the kernel a device-memory scratch
+    of ``scratch_words`` int32 words a block (16-byte aligned, P x N
+    blocks) and still launches once; under it, a null scratch."""
+    from repro_torch.kernels import split_control as SC
+    calls, scratch = [], []
+    _fake_library(monkeypatch, SC, calls)
+    real_empty = torch.empty
+
+    def empty(shape, *a, **kw):
+        out = real_empty(shape, *a, **kw)
+        if kw.get("dtype") == torch.int32 and len(shape) == 2 \
+                and shape[1] == SC.scratch_words(b, m):
+            scratch.append(out)
+        return out
+
+    monkeypatch.setattr(SC.torch, "empty", empty)
+    before = SC.COUNT.launches
+    z = torch.zeros(pipes, dtype=torch.int32)
+    meta = [torch.zeros(pipes, m, dtype=torch.int32) for _ in range(3)]
+    SC.split_control_cuda(m, 2, 1 << 16, 160, 160, z, z, *meta,
+                          torch.ones(pipes, b, dtype=torch.bool),
+                          torch.full((pipes, b), 200, dtype=torch.int32))
+    assert SC.COUNT.launches == before + 1
+    args = calls[0][1]
+    blocks = SC.slot_ranges(m)[0]
+    assert SC.MAX_SHARED == 227 * 1024 - 32
+    assert past == (SC.shared_bytes(b, m) > SC.MAX_SHARED)
+    if past:
+        assert len(scratch) == 1 and args[29] == scratch[0].data_ptr()
+        assert tuple(scratch[0].shape) == (pipes * blocks,
+                                           SC.scratch_words(b, m))
+        assert SC.scratch_words(b, m) % 4 == 0
+        assert 4 * SC.scratch_words(b, m) >= SC.shared_bytes(b, m)
+    else:
+        assert args[29] is None and not scratch
+
+
+@pytest.mark.parametrize("m,b,max_clk", [(16, 8, 1), (16, 8, (1 << 31) + 1),
+                                         (1 << 31, 8, 1 << 16)])
+def test_split_control_cuda_raises_past_its_32_bit_tagger(m, b, max_clk):
+    """The kernel's tagger works in 32 bits: a capacity of 2^31 rows or a
+    clock past 2^31 (or of 1, with nothing to wrap) raises before any
+    launch or allocation."""
+    from repro_torch.kernels import split_control as SC
+    before = SC.COUNT.launches
+    z = torch.zeros((), dtype=torch.int32)
+    meta = [torch.zeros(1, dtype=torch.int32).expand(m) for _ in range(3)]
+    with pytest.raises(ValueError, match="32-bit tagger"):
+        SC.split_control_cuda(m, 2, max_clk, 160, 160, z, z, *meta,
+                              torch.ones(b, dtype=torch.bool),
+                              torch.full((b,), 200, dtype=torch.int32))
+    assert SC.COUNT.launches == before
 
 
 def test_merge_stage_binding_matches_its_signature(monkeypatch):
