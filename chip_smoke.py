@@ -1,4 +1,5 @@
-"""Run the PyTorch port's dataplane on one NVIDIA card and check it.
+"""Run the PyTorch port's dataplane and LM stack on one NVIDIA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -44,8 +45,11 @@ Phases (any failure raises, so the script exits non-zero):
    row on both sides of the tile boundary) in two launches of at most
    12288 packets, and ``merge_stage`` at M = 2**20, B = 256 (128 blocks of
    8192 slots, in shared memory) on honest and contested tags, each exact
-   and timed beside its plain version, and at 1 x 14336 packets (past the
-   227 KB of shared memory, in a device-memory scratch), exact.  Each
+   and timed beside its plain version, at 1 x 14336 packets (past the
+   227 KB of shared memory, in a device-memory scratch), and at the largest
+   batch in shared memory and 1 x 13487 and 1 x 13488 packets at M 4096
+   (whose layout falls in the kernel's 48 B of static shared memory, so in
+   the scratch), each followed by further calls, all exact.  Each
    wrapper call must add exactly one
    launch to its kernel's count (``nf_chain`` one per 8 stages,
    ``payload_store`` one per tile).  Each
@@ -131,9 +135,32 @@ Phases (any failure raises, so the script exits non-zero):
    too at this geometry (``KNOWN_FRAGILE_GATES``, reported), and the
    launches per call of phase 4; ``verify_oracle`` (the host loop on the
    card) on every card point.
-10. A ``kernels`` JSON line (launches per path, ``launches_stream`` and
-    ``launches_adversarial`` included), the card line, and the final
-    ``ok`` line.
+10. LM: Mixtral-8x7B at full width (16 of its 32 layers: all 32 do not
+    fit in 80 GB; seeded random weights drawn one layer slice at a time)
+    served like phase 6 (4 requests of 64 + 16 tokens, request 2
+    cancelled after 8 steps) with the ``paged_attention`` kernel and
+    replayed with the plain version, the kernel shadowing every plain call
+    on the replay's inputs within the reference's tolerances; logits are
+    compared on the token steps whose request was routed alike by every
+    MoE layer in both runs so far (a near tie rounded apart changes the
+    request's KV history; the first such step is printed with its top-k
+    margin), launches = layers x token steps.  Then ``LM.prefill`` of 128
+    tokens + one ``decode_step`` against ``LM.forward_train`` (batch 2, MoE
+    capacity 8.0) at full width on the six configs of ``LM_STACK``, each
+    within the reference's relative 0.06; past it, the same run with the
+    weights cast to f32 layer by layer must hold it (else a fault), and
+    the bf16 logits are held to the f32 run's within 0.25 at the
+    positions routed alike.  RecurrentGemma-9B's full 38 layers overflow
+    in the reference's own model (ROADMAP C0g): reported, and the run is
+    held again on its first 8 layers.  Then the ten reduced configs'
+    forward, prefill and decode, card against CPU from the same weights,
+    logits within 0.08 (past it, within twice the CPU run's own bf16 error
+    against its f32 run).  Walls, tokens/s and peak device memory go into
+    an ``lm`` JSON line.
+11. The ``lm`` and ``kernels`` JSON lines (launches per path,
+    ``launches_stream``, ``launches_adversarial`` and, for
+    ``paged_attention``, ``launches_mixtral`` included), the card line,
+    and the final ``ok`` line.
 
 Phase 2 also holds ``paged_attention`` against its plain version within
 the reference's atol 0.02 / rtol 0.05 at the reference's sweep shapes, the
@@ -156,6 +183,8 @@ Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -223,6 +252,22 @@ INSIDE_CHAIN = ("acl_match", "maglev")
 # (tests/test_kernels.py), and the bounds of the serving phase
 PAGED_ATOL, PAGED_RTOL = 0.02, 0.05
 SERVE_LOGIT_ERR = 0.25     # full width: kernel run vs plain replay
+# the LM phase's full-width runs: (config, layers on the card; None = all).
+# Mixtral's 16 of 32 layers are the serving run's weights (~47 GB of
+# bf16: all 32 do not fit in 80 GB); DeepSeek-V2 runs dense0 and 2 MoE
+# layers, Qwen2-VL 16 of 80
+LM_STACK = (("mixtral-8x7b", 16), ("deepseek-v2-236b", 3),
+            ("qwen2-vl-72b", 16), ("recurrentgemma-9b", None),
+            ("mamba2-1.3b", None), ("seamless-m4t-large-v2", None))
+# full-depth runs whose residual stream overflows in the reference's own
+# model (ROADMAP C0g: its recurrent blocks skip their pre-norm): reported,
+# not required; the invariant is held again on the depth given here
+OVERFLOWS_IN_REFERENCE = {"recurrentgemma-9b": 8}
+LM_BATCH, LM_PREFILL, LM_CACHE_LEN = 2, 128, 160
+LM_VISION_TOKENS = 64   # the VLM stub's patch embeddings, an 8 x 8 grid
+LM_ENC_FRAMES = 128     # the speech stub's frames
+# prefill + decode against forward (tests/test_decode_consistency.py)
+SELF_REL = 0.06
 REDUCED_LOGIT_ERR = 0.08   # reduced Gemma: card vs CPU (the reference's
                            # engine tolerance, tests/test_serving.py)
 
@@ -445,8 +490,11 @@ def check_past_limits(gen, dev) -> dict:
     160 in consecutive tiles of ``MAX_PACKETS`` (two launches a call), and
     ``merge_stage`` at M = 2**20, B = 256 (128 blocks of 8192 slots, 7424 B
     of bitmaps and staged rows a block, in shared memory) on honest and
-    contested tags, and at 1 x 14336 packets, M 4096 (past the 227 KB of
-    shared memory, so in a device-memory scratch).  One launch a
+    contested tags, at 1 x 14336 packets, M 4096 (past the 227 KB of
+    shared memory, so in a device-memory scratch), and around the block's
+    limit less the kernel's 48 B of static shared memory: the largest batch
+    in shared memory, then 1 x 13487 and 1 x 13488 (in the scratch), each
+    followed by more calls that must succeed.  One launch a
     ``merge_stage`` call.  Each exact against its plain version, the first
     two timed beside it."""
     from repro_torch.backend import ref as R
@@ -477,11 +525,19 @@ def check_past_limits(gen, dev) -> dict:
           f"(duplicate rows across each tile boundary)")
 
     err = 0
-    for label, b, m, corrupt in (("honest", 256, 1 << 20, False),
-                                 ("device-memory scratch", 14336, 4096, True),
-                                 ("contested", 256, 1 << 20, True)):
+    # C6: the largest batch in shared memory at M 4096, then the two whose
+    # layout falls in the kernel's static 48 B (once refused, leaving a
+    # stale error for the next call), each followed by further calls
+    last = (merge_stage.MAX_SHARED - merge_stage.shared_bytes(0, 4096)) // 17
+    for label, b, m, corrupt, in_scratch in (
+            ("honest", 256, 1 << 20, False, False),
+            ("last in shared memory", last, 4096, False, False),
+            ("static-shared boundary", 13487, 4096, False, True),
+            ("static-shared boundary", 13488, 4096, True, True),
+            ("device-memory scratch", 14336, 4096, True, True),
+            ("contested", 256, 1 << 20, True, False)):
         scratch = merge_stage.shared_bytes(b, m) > merge_stage.MAX_SHARED
-        if scratch != (b > 256):
+        if scratch != in_scratch:
             raise AssertionError(f"merge_stage 1x{b} M {m}: shared memory "
                                  f"{merge_stage.shared_bytes(b, m)} B")
         margs = merge_args(gen, (1,), b, m, w, dev, corrupt)
@@ -1502,7 +1558,6 @@ def stream_setup():
 
 def stream_traced() -> list:
     """The first steps of one stream segment, to be traced."""
-    import dataclasses
 
     from repro_torch.switchsim.stream import run_stream
 
@@ -1515,7 +1570,6 @@ def stream_traced() -> list:
 
 def stream_phase(dev):
     """The stream phase.  Returns the launch counts of the full card run."""
-    import dataclasses
 
     from repro_torch.core.packet import FIELDS
     from repro_torch.core.park import ParkConfig
@@ -1897,18 +1951,31 @@ def time_paged(dev) -> dict:
 
 class Recorder:
     """Wraps an engine's ``_forward_token`` to keep, per token step, the
-    request, position, input token and logits (on the engine's device)."""
+    request, position, input token and logits (on the engine's device), and
+    its MoE routing (``routing``).  With ``pin`` (another run's recorder of
+    the same steps), each step takes that run's experts."""
 
-    def __init__(self, eng):
+    def __init__(self, eng, pin=None):
         self.steps = []
+        self.routes = []
         inner = eng._forward_token
 
         def forward(slot, token):
-            logits, k, v = inner(slot, token)
+            given = None if pin is None else pin.routes[len(self.steps)].calls
+            with routing(given) as rec:
+                logits, k, v = inner(slot, token)
             self.steps.append((int(eng.rid[slot]), int(eng.pos[slot]),
                                int(token), logits))
+            self.routes.append(rec)
             return logits, k, v
         eng._forward_token = forward
+
+    def apart(self) -> tuple[int, float]:
+        """Pinned steps whose own router chose other experts somewhere, and
+        the least top-k margin there."""
+        counts = [r.apart() for r in self.routes]
+        hit = [m for n, m in counts if n]
+        return len(hit), min(hit, default=math.inf)
 
     def forcing(self):
         """A ``before_step`` hook that feeds a replay the recorded input
@@ -1981,14 +2048,114 @@ def lifecycle(eng, before_step=None) -> None:
         raise AssertionError(f"lifecycle: stats {d}")
 
 
+def shadowed(plain, pa_module, shadow: list):
+    """The engine's plain ``paged_attention`` with the kernel run beside it
+    on the same inputs: per call, the largest |kernel - plain| and the
+    largest excess over atol + rtol |plain| (kept on the card until read).
+    The comparison's launches are taken back off the kernel's count."""
+    def attend(q, k_pages, v_pages, pt, lengths):
+        out = plain(q, k_pages, v_pages, pt, lengths)
+        before = pa_module.COUNT.launches
+        got = pa_module.paged_decode_attention_cuda(q, k_pages, v_pages, pt,
+                                                    lengths)
+        pa_module.COUNT.launches = before
+        d = (got.float() - out.float()).abs()
+        shadow.append((d.max(), (d - PAGED_ATOL
+                                 - PAGED_RTOL * out.float().abs()).max()))
+        return out
+    return attend
+
+
+def shadow_error(shadow: list) -> tuple[float, int]:
+    """The largest |kernel - plain| over the shadowed calls; raises where a
+    call breaks the paged-attention tolerance."""
+    err = float(torch.stack([d for d, _ in shadow]).max())
+    excess = float(torch.stack([x for _, x in shadow]).max())
+    if excess > 0:
+        raise AssertionError(f"paged_attention on the serving inputs: "
+                             f"max |d| {err} past atol {PAGED_ATOL} + rtol "
+                             f"{PAGED_RTOL}")
+    return err, len(shadow)
+
+
+def serve_pair(label, cfg, params, ecfg, prompts, gen_len, cancel, dev):
+    """``launch.serve`` with the ``paged_attention`` kernel (backend
+    ``auto``), then replayed teacher-forced with the plain version on the
+    card, the kernel shadowing every plain call on the same inputs
+    (``shadowed``); an MoE replay also takes the kernel run's experts (a
+    near tie that the two runs round apart would otherwise change the
+    request's history from there on).  The two runs must keep identical
+    pool and header accounting, logits within ``SERVE_LOGIT_ERR``, and the
+    kernel launched layers x token steps times.  Returns the kernel run's
+    launch counts and its report."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import ServeEngine
+
+    from repro_torch.kernels import paged_attention as PA
+
+    lm = LM(cfg)
+    runs = {}
+    shadow = []
+    for backend in ("auto", "ref"):
+        eng = ServeEngine(lm, params, ecfg, backend=backend)
+        if backend == "ref":
+            eng.attend = shadowed(eng.attend, PA, shadow)
+        rec = Recorder(eng, pin=runs["auto"][1] if runs else None)
+        hook = None if backend == "auto" else runs["auto"][1].forcing()
+        sync(dev)
+        reset_launch_counts()
+        rep = serve(eng, prompts, gen_len, cancel=cancel, before_step=hook)
+        counts = launch_counts()
+        runs[backend] = (eng, rec, rep, counts)
+        steps = len(rec.steps)
+        what = ("kernel" if backend == "auto"
+                else "plain version, teacher-forced")
+        print(f"{label} {backend} ({what}): "
+              f"{rep.done} done, {rep.cancelled} cancelled, {steps} token "
+              f"steps and {rep.tokens} decode tokens in {rep.seconds:.3f} s "
+              f"({steps / rep.seconds:.1f} token steps/s, "
+              f"{rep.tokens / rep.seconds:.1f} decode tok/s); "
+              f"paged_attention launches {counts['paged_attention']}")
+    (eng_k, rec_k, rep_k, counts_k), (eng_p, rec_p, rep_p, counts_p) = \
+        runs["auto"], runs["ref"]
+    same_engines(label, eng_k, eng_p)
+    same(f"{label} report", (rep_k.done, rep_k.cancelled, rep_k.tokens),
+         (rep_p.done, rep_p.cancelled, rep_p.tokens))
+    want = cfg.num_layers * len(rec_k.steps)
+    if counts_k["paged_attention"] != want or counts_p["paged_attention"]:
+        raise AssertionError(f"{label}: paged_attention launched "
+                             f"{counts_k['paged_attention']} times, want "
+                             f"layers x token steps = {want} (plain replay "
+                             f"{counts_p['paged_attention']}, want 0)")
+    serr, calls = shadow_error(shadow)
+    print(f"{label}: the kernel on every one of the replay's {calls} "
+          f"attention inputs: max |d| {serr:.6f} from the plain version "
+          f"(atol {PAGED_ATOL}, rtol {PAGED_RTOL}); these launches are not "
+          "counted")
+    apart, least = rec_p.apart()
+    if apart:
+        print(f"{label}: the replay takes the kernel run's experts at every "
+              f"MoE layer; at {apart} of {len(rec_p.steps)} token steps its "
+              f"own router would have chosen others somewhere (near ties, "
+              f"least top-k margin {least:.3g})")
+    err, undecided = logit_errors(label, rec_k, rec_p, SERVE_LOGIT_ERR)
+    print(f"{label}: kernel run vs plain replay: stats, pages, gens, drops "
+          f"and header bytes identical ({eng_k.stats()}); max |dlogit| "
+          f"{err:.6f} over {len(rec_k.steps)} steps; tokens identical where "
+          f"the top-2 margin > 2 x that, {undecided} steps too close to "
+          f"call; launches = {cfg.num_layers} x {len(rec_k.steps)}")
+    return counts_k, rep_k
+
+
 def serve_phase(dev):
     """Phase 6.  Returns the launch counts of the kernel run and the run to
     trace once every timed run is over."""
     from repro_torch import configs
     from repro_torch.configs.reduced import reduced
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.serve import (engine_config, init_params,
-                                          make_prompts, serve)
+                                          make_prompts)
     from repro_torch.models.lm import LM
     from repro_torch.serving.engine import EngineConfig, ServeEngine
     from repro_torch.serving.pool import PoolConfig
@@ -2005,43 +2172,8 @@ def serve_phase(dev):
           f"on {dev} in {time.perf_counter() - t0:.1f} s")
     ecfg = engine_config(128, 32, max_batch=4, pages=256, page_tokens=16)
     prompts = make_prompts(4, 128, cfg.vocab_size)
-    cancel = {2: 16}
-    runs = {}
-    for backend in ("auto", "ref"):
-        eng = ServeEngine(lm, params, ecfg, backend=backend)
-        rec = Recorder(eng)
-        hook = None if backend == "auto" else runs["auto"][1].forcing()
-        sync(dev)
-        reset_launch_counts()
-        rep = serve(eng, prompts, 32, cancel=cancel, before_step=hook)
-        counts = launch_counts()
-        runs[backend] = (eng, rec, rep, counts)
-        steps = len(rec.steps)
-        what = ("kernel" if backend == "auto"
-                else "plain version, teacher-forced")
-        print(f"serve {backend} ({what}): "
-              f"{rep.done} done, {rep.cancelled} cancelled, {steps} token "
-              f"steps and {rep.tokens} decode tokens in {rep.seconds:.3f} s "
-              f"({steps / rep.seconds:.1f} token steps/s, "
-              f"{rep.tokens / rep.seconds:.1f} decode tok/s); "
-              f"paged_attention launches {counts['paged_attention']}")
-    (eng_k, rec_k, rep_k, counts_k), (eng_p, rec_p, rep_p, counts_p) = \
-        runs["auto"], runs["ref"]
-    same_engines("serve", eng_k, eng_p)
-    same("serve report", (rep_k.done, rep_k.cancelled, rep_k.tokens),
-         (rep_p.done, rep_p.cancelled, rep_p.tokens))
-    want = cfg.num_layers * len(rec_k.steps)
-    if counts_k["paged_attention"] != want or counts_p["paged_attention"]:
-        raise AssertionError(f"serve: paged_attention launched "
-                             f"{counts_k['paged_attention']} times, want "
-                             f"layers x token steps = {want} (plain replay "
-                             f"{counts_p['paged_attention']}, want 0)")
-    err, undecided = logit_errors("serve", rec_k, rec_p, SERVE_LOGIT_ERR)
-    print(f"serve: kernel run vs plain replay: stats, pages, gens, drops and "
-          f"header bytes identical ({eng_k.stats()}); max |dlogit| "
-          f"{err:.6f} over {len(rec_k.steps)} steps; tokens identical where "
-          f"the top-2 margin > 2 x that, {undecided} steps too close to "
-          f"call; launches = {cfg.num_layers} x {len(rec_k.steps)}")
+    counts_k, _ = serve_pair("serve", cfg, params, ecfg, prompts, 32,
+                             {2: 16}, dev)
 
     # reduced Gemma-7B, the reference test's lifecycle, card against CPU
     rcfg = reduced(configs.get("gemma-7b"))
@@ -2068,6 +2200,356 @@ def serve_phase(dev):
     return counts_k, [("serve qwen2.5-3b prefill", traced_run,
                        PROFILE_TOKENS)]
 
+
+
+# --------------------------------------------------------------------------
+# LM phase: Mixtral served through paged_attention, the model stack
+# --------------------------------------------------------------------------
+
+def held(label, got, want, want32, bound) -> str:
+    """bf16 ``got`` against ``want`` within ``bound``; past it, against the
+    f32 run ``want32`` within twice ``want``'s own error there (the bf16
+    rounding of the run it is held to).  Raises otherwise."""
+    err = float((got.float() - want.float()).abs().max())
+    if err <= bound:
+        return f"{err:.6f} <= {bound}"
+    own = float((want.float() - want32.float()).abs().max())
+    err32 = float((got.float() - want32.float()).abs().max())
+    if err32 > 2 * own:
+        raise AssertionError(f"{label}: max |d| {err} > {bound}, and "
+                             f"{err32} from the f32 run > twice the "
+                             f"reference run's own {own}")
+    return (f"{err:.6f} > {bound}, but {err32:.6f} from the f32 run, "
+            f"within twice the reference run's own {own:.6f}")
+
+
+def nodrop(cfg):
+    """MoE capacity raised to 8.0 so that no token is dropped, as in
+    tests/test_decode_consistency.py."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+
+
+def lm_batch(cfg, b, s, dev, gen, nv=LM_VISION_TOKENS, frames=LM_ENC_FRAMES):
+    """Tokens, and the stubs' inputs: ``nv`` vision embeddings on M-RoPE
+    grid positions for a VLM, ``frames`` speech frames for an encoder."""
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    if cfg.family == "vlm":
+        pos = torch.arange(s, device=dev)[None, None].repeat(3, b, 1)
+        side = int(nv ** 0.5)
+        pos[0, :, :nv] = 0
+        pos[1, :, :nv] = torch.arange(nv, device=dev) // side
+        pos[2, :, :nv] = torch.arange(nv, device=dev) % side
+        batch["positions"] = pos.to(torch.int32)
+        batch["vision_embeds"] = 0.02 * torch.randn(
+            (b, nv, cfg.d_model), generator=gen, device=dev,
+            dtype=torch.float32).to(torch.bfloat16)
+    if cfg.enc_layers:
+        batch["enc_frames"] = 0.1 * torch.randn(
+            (b, frames, cfg.d_model), generator=gen, device=dev,
+            dtype=torch.float32).to(torch.bfloat16)
+    return batch
+
+
+class Routing:
+    """One run's MoE routing, a call per MoE layer in order: each token's
+    experts (the router's top-k order) and top-k margin (the k-th router
+    probability less the (k+1)-th: a small margin is a near tie that
+    rounding can flip); in a pinned run, also which tokens' own router
+    chose other experts than the ones given."""
+
+    def __init__(self):
+        self.calls, self.flips = [], []
+
+    def at(self, pos) -> list:
+        """The experts at sequence positions ``pos`` of every call."""
+        return [idx[:, pos] for idx, _ in self.calls]
+
+    def apart(self) -> tuple[int, float]:
+        """Tokens whose own router chose otherwise in some layer, and the
+        least top-k margin among those choices."""
+        hit, least = None, math.inf
+        for flip, margin in self.flips:
+            flip, margin = flip.cpu(), margin.cpu()
+            hit = flip if hit is None else hit | flip
+            if bool(flip.any()):
+                least = min(least, float(margin[flip].min()))
+        return (0 if hit is None else int(hit.sum())), least
+
+
+@contextlib.contextmanager
+def routing(pin=None):
+    """Record the routing of every ``moe_apply`` call (``Routing``).  With
+    ``pin`` (experts per call, in order, as ``Routing.calls`` or
+    ``Routing.at`` give them), each call takes the experts given in place
+    of its router's top-k (``moe_apply(top_i=...)``)."""
+    from repro_torch.models import moe
+    inner = moe.moe_apply
+    rec = Routing()
+
+    def call(p, x, cfg, act):
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1)
+        own = top.indices[..., :-1]
+        margin = top.values[..., -2] - top.values[..., -1]
+        if pin is None:
+            rec.calls.append((own, margin))
+            return inner(p, x, cfg, act)
+        given = pin[len(rec.calls)]
+        given = (given[0] if isinstance(given, tuple) else given).to(x.device)
+        rec.calls.append((given, margin))
+        rec.flips.append(((own.sort(dim=-1).values
+                           != given.sort(dim=-1).values).any(dim=-1),
+                          margin))
+        return inner(p, x, cfg, act, top_i=given)
+    moe.moe_apply = call
+    try:
+        yield rec
+    finally:
+        moe.moe_apply = inner
+
+
+def prefix(batch, n):
+    return {k: (v[..., :n] if k in ("tokens", "positions") else v)
+            for k, v in batch.items()}
+
+
+def stack_run(cfg, params, batch, dev, cache_len, keep_logits=False,
+              pin=None):
+    """``forward_train`` on the whole batch, then ``prefill`` on all but
+    the last token and one ``decode_step``; each timed (host clock ending
+    in a synchronize).  Prefill and decode take the forward's MoE routing
+    (``routing``), so that a near tie rounded apart cannot break the
+    invariant; with ``pin`` (another run's forward routing) the forward
+    takes that too.  Returns the logits (all of the forward's with
+    ``keep_logits``), the relative error of the decoded logits against the
+    forward's last, the routings and the walls."""
+    from repro_torch.models.lm import LM
+    lm = LM(cfg)
+    b, s = batch["tokens"].shape
+    out = {}
+    with torch.no_grad():
+        sync(dev)
+        t0 = time.perf_counter()
+        with routing(pin) as out["fwd"]:
+            logits, _ = lm.forward_train(params, batch)
+        sync(dev)
+        out["forward_s"] = time.perf_counter() - t0
+        out["logits"] = logits.float().cpu() if keep_logits else None
+        out["want"] = logits[:, -1].float()
+        del logits
+        t0 = time.perf_counter()
+        with routing(out["fwd"].at(slice(0, s - 1))) as out["pre"]:
+            out["last"], cache = lm.prefill(params, prefix(batch, s - 1),
+                                            cache_len=cache_len)
+        sync(dev)
+        out["prefill_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with routing(out["fwd"].at(slice(s - 1, s))) as out["dec"]:
+            out["got"], _ = lm.decode_step(
+                params, cache, batch["tokens"][:, -1],
+                torch.full((b,), s - 1, dtype=torch.int32, device=dev))
+        sync(dev)
+        out["decode_s"] = time.perf_counter() - t0
+    got, want = out["got"].float(), out["want"]
+    out["rel"] = float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-6)
+    return out
+
+
+def apart_line(r) -> str:
+    """The tokens whose own router chose other experts than the pinned
+    ones, per phase."""
+    parts = []
+    for phase in ("fwd", "pre", "dec"):
+        n, least = r[phase].apart()
+        if n:
+            parts.append(f"{phase} {n} (least top-k margin {least:.3g})")
+    return ("; tokens whose own router chose other experts than the "
+            "forward's: " + ", ".join(parts)) if parts else ""
+
+
+class F32Layers:
+    """A stacked (L, ...) leaf that gives layer ``li`` cast to f32 when the
+    layer loop indexes it, so an f32 run holds one layer in f32 beside the
+    bf16 weights (Mixtral's 16 layers are 94 GB in f32)."""
+
+    def __init__(self, stacked):
+        self.stacked = stacked
+
+    def __getitem__(self, li):
+        return self.stacked[li].float()
+
+
+def as_f32(params: dict) -> dict:
+    """The same model in f32: the embeddings and norms cast, every stacked
+    layer leaf cast layer by layer as it runs (``F32Layers``)."""
+    def lazy(tree):
+        return {k: lazy(v) if isinstance(v, dict) else F32Layers(v)
+                for k, v in tree.items()}
+    return {k: ({kk: vv.float() for kk, vv in v.items()} if k == "embed"
+                else lazy(v) if isinstance(v, dict) else v.float())
+            for k, v in params.items()}
+
+
+def lm_stack(name, layers, params, dev, gen) -> dict:
+    """Prefill + decode against the forward on one full-width config, with
+    the reference's relative bound (MoE routing pinned to the forward's,
+    ``stack_run``); past it, the same run with the weights cast to f32
+    decides between a fault (f32 breaks the bound too) and bf16 rounding
+    (then the bf16 logits are held to the f32 run's within
+    SERVE_LOGIT_ERR, under the bf16 forward's routing)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import init_params
+    full = configs.get(name)
+    cfg = nodrop(full if layers is None
+                 else dataclasses.replace(full, num_layers=layers))
+    depth = (f"{cfg.num_layers} of {full.num_layers} layers"
+             if layers is not None else f"all {cfg.num_layers} layers")
+    if cfg.enc_layers:
+        depth += f" + {cfg.enc_layers} encoder layers"
+    torch.cuda.reset_peak_memory_stats(dev)
+    if params is None:
+        t0 = time.perf_counter()
+        params = init_params(cfg, dev)
+        sync(dev)
+        print(f"lm {name}: {depth}, weights drawn in "
+              f"{time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated(dev)} B allocated")
+    batch = lm_batch(cfg, LM_BATCH, LM_PREFILL + 1, dev, gen)
+    r = stack_run(cfg, params, batch, dev, LM_CACHE_LEN, keep_logits=True)
+    peak = torch.cuda.max_memory_allocated(dev)
+    b, s = LM_BATCH, LM_PREFILL
+    row = dict(name=name, depth=depth, rel=r["rel"], bound=SELF_REL,
+               forward_s=r["forward_s"], prefill_s=r["prefill_s"],
+               decode_s=r["decode_s"],
+               prefill_tok_s=b * s / r["prefill_s"],
+               decode_tok_s=b / r["decode_s"], peak_bytes=peak,
+               routed_apart=[r[k].apart()[0] for k in ("pre", "dec")])
+    print(f"lm {name} ({depth}, batch {b}, prefill {s} + 1 decode): "
+          f"forward {r['forward_s']:.3f} s, prefill {r['prefill_s']:.3f} s "
+          f"({row['prefill_tok_s']:.1f} tok/s), decode {r['decode_s']:.3f} s "
+          f"({row['decode_tok_s']:.1f} tok/s), peak device memory {peak} B; "
+          f"prefill + decode vs forward: relative error {r['rel']:.6f} "
+          f"(bound {SELF_REL}){apart_line(r)}")
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in (r["got"], r["want"], r["last"]))
+    if not finite and layers is None and name in OVERFLOWS_IN_REFERENCE:
+        row.update(rel=None, overflow=True)
+        print(f"lm {name}: the logits of all {cfg.num_layers} layers are "
+              f"not finite: the residual stream overflows, as in the "
+              f"reference's own model (ROADMAP C0g); reported, not required")
+        return row
+    if not finite:
+        raise AssertionError(f"lm {name}: non-finite logits")
+    if r["rel"] >= SELF_REL:
+        r32 = stack_run(cfg, as_f32(params), batch, dev, LM_CACHE_LEN,
+                        keep_logits=True, pin=r["fwd"].calls)
+        row["rel_f32"] = r32["rel"]
+        print(f"lm {name}: past the bound in bf16; with f32 weights (cast "
+              f"layer by layer as it runs, the bf16 forward's routing) the "
+              f"relative error is {r32['rel']:.6f}")
+        if r32["rel"] >= SELF_REL:
+            raise AssertionError(f"lm {name}: prefill + decode vs forward "
+                                 f"{r32['rel']} in f32 too: a fault")
+        for what in ("logits", "got"):
+            err = float((r[what].float().cpu()
+                         - r32[what].float().cpu()).abs().max())
+            row[f"{what}_vs_f32"] = err
+            if not err <= SERVE_LOGIT_ERR:
+                raise AssertionError(f"lm {name}: bf16 {what} {err} from "
+                                     "the f32 run's")
+        print(f"lm {name}: bf16 rounding over depth: the bf16 forward and "
+              f"decode logits lie within {row['logits_vs_f32']:.6f} / "
+              f"{row['got_vs_f32']:.6f} of the f32 run's (bound "
+              f"{SERVE_LOGIT_ERR})")
+    return row
+
+
+def reduced_card_vs_cpu(name, dev) -> dict:
+    """A reduced config's forward, prefill and decode on the card against
+    the CPU from the same weights, the card taking the CPU run's MoE
+    routing: logits within REDUCED_LOGIT_ERR, or past it within twice the
+    CPU run's own bf16 error against its f32 run (``held``)."""
+    from repro_torch import configs
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.launch.serve import init_params
+    cfg = nodrop(reduced(configs.get(name)))
+    cpu = init_params(cfg, "cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    batch = lm_batch(cfg, 2, 33, "cpu", gen, nv=8, frames=32)
+    ref = stack_run(cfg, cpu, batch, "cpu", 40, keep_logits=True)
+    pin = ref["fwd"].calls
+    card = stack_run(cfg, to_device(cpu, dev), to_device(batch, dev), dev, 40,
+                     keep_logits=True, pin=pin)
+    ref32 = stack_run(cfg, as_f32(cpu), batch, "cpu", 40, keep_logits=True,
+                      pin=pin)
+    notes = [f"{what} " + held(f"reduced {name} {what}", card[key].cpu(),
+                               ref[key], ref32[key], REDUCED_LOGIT_ERR)
+             for what, key in (("forward", "logits"), ("prefill", "last"),
+                               ("decode", "got"))]
+    print(f"lm reduced {cfg.name}: card vs CPU logits: {'; '.join(notes)}"
+          f"{apart_line(card)}")
+    return {"name": name, "checks": notes,
+            "routed_apart": [card[k].apart()[0] for k in ("fwd", "pre",
+                                                           "dec")]}
+
+
+def lm_phase(dev):
+    """The LM phase.  Mixtral-8x7B at full width (16 of 32 layers) served
+    through ``launch.serve`` with the ``paged_attention`` kernel and
+    replayed with the plain version, then the six full-width prefill +
+    decode against forward runs (``LM_STACK``), then the ten reduced
+    configs card against CPU.  Returns the serving run's launch counts and
+    the rows it printed."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import (engine_config, init_params,
+                                          make_prompts)
+
+    cfg = dataclasses.replace(configs.get("mixtral-8x7b"),
+                              num_layers=LM_STACK[0][1])
+    torch.cuda.init()  # the memory statistics need the runtime up
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, dev)
+    sync(dev)
+    draw_peak = torch.cuda.max_memory_allocated(dev)
+    held_bytes = torch.cuda.memory_allocated(dev)
+    print(f"lm serve: {cfg.name} at full width ({cfg.num_layers} of 32 "
+          f"layers, d_model {cfg.d_model}, {cfg.moe.num_experts} experts "
+          f"top-{cfg.moe.top_k} with d_ff {cfg.moe.d_ff_expert}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head_dim "
+          f"{cfg.head_dim}, vocab {cfg.vocab_padded()}): weights drawn in "
+          f"{time.perf_counter() - t0:.1f} s, {held_bytes} B held, peak "
+          f"device memory of the draw {draw_peak} B")
+    ecfg = engine_config(64, 16, max_batch=4, pages=256, page_tokens=16)
+    prompts = make_prompts(4, 64, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts, rep = serve_pair("lm serve mixtral", cfg, params, ecfg, prompts,
+                             16, {2: 8}, dev)
+    print(f"lm serve mixtral: peak device memory of the two runs "
+          f"{torch.cuda.max_memory_allocated(dev)} B")
+    rows = {"serve": dict(draw_peak_bytes=draw_peak, held_bytes=held_bytes,
+                          seconds=rep.seconds, tokens=rep.tokens)}
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    stack = []
+    for name, layers in LM_STACK:
+        stack.append(lm_stack(name, layers, params, dev, gen))
+        params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        if stack[-1].get("overflow"):
+            stack.append(lm_stack(name, OVERFLOWS_IN_REFERENCE[name], None,
+                                  dev, gen))
+            gc.collect()
+            torch.cuda.empty_cache()
+    rows["stack"] = stack
+    rows["reduced"] = [reduced_card_vs_cpu(n, dev) for n in configs.names()]
+    return counts, rows
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2112,11 +2594,16 @@ def main() -> int:
     for label, run, steps in (traced + chain_traced + serve_traced
                               + stream_traced()):
         profile_steps(label, run, dev, steps)
+    del traced, chain_traced, serve_traced  # their runs hold weights
     stamp("phase 7 (traces)")
     counts["stream"] = stream_phase(dev)
     stamp("stream phase")
     counts["adversarial"] = adversarial_phase(dev)
     stamp("adversarial phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["mixtral"], lm_rows = lm_phase(dev)
+    stamp("LM phase")
 
     # ``launches`` is the count on the kernel's own main path: pipes8 for
     # the Split -> FW -> NAT -> Merge kernels (0 for crc16 and
@@ -2151,6 +2638,8 @@ def main() -> int:
         if name == "paged_attention":
             row["batched"] = {k: paged["batched"][k]
                               for k in keys + ("gather_ms",)}
+            # the LM phase's Mixtral-8x7B serving run (16 layers)
+            row["launches_mixtral"] = counts["mixtral"][name]
         if name == "nf_chain":
             row["chain"] = {k: times["nf_chain chain"][k] for k in keys}
         if name == "split_control":  # the stream's and the chain's shapes
@@ -2159,6 +2648,7 @@ def main() -> int:
                             **{k: times[f"{name} {label}"][k] for k in keys})
                 for label, *_ in SPLIT_SHAPES if label}
         kernels.append(row)
+    print(json.dumps({"lm": lm_rows}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -373,7 +373,10 @@ extern "C" int pp_merge_stage(
     const cudaError_t err = cudaFuncSetAttribute(
         merge_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(shared));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, so the next call does not report it
+      return static_cast<int>(err);
+    }
   }
   merge_stage_kernel<<<static_cast<unsigned>(pipes * blocks), kThreads,
                        shared, static_cast<cudaStream_t>(stream)>>>(a);

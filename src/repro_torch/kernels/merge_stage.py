@@ -40,7 +40,10 @@ from repro_torch.kernels.build import (check, launch_counter, library,
 
 COUNT = launch_counter("merge_stage")
 
-MAX_SHARED = 227 * 1024  # dynamic shared memory a Hopper block may use
+BLOCK_SHARED = 227 * 1024  # shared memory a Hopper block may use
+# the dynamic part: the block's shared memory less the kernel's static
+# warp counts and flag (48 B as the compiler lays them out)
+MAX_SHARED = BLOCK_SHARED - 48
 RANGES = 16              # blocks a pipe: 128 at 8 pipes fill the card
 MAX_SPAN = 8192          # slots a block owns at most (more blocks past it)
 
@@ -49,9 +52,9 @@ DECISIONS = (("matched", torch.bool), ("premature", torch.bool),
              ("crc_fail", torch.bool), ("disabled", torch.bool),
              ("is_drop_op", torch.bool), ("park_len", torch.int32))
 
-__all__ = ["COUNT", "MAX_SHARED", "merge_stage", "merge_stage_cuda",
-           "merge_stage_plain", "packet_blocks", "scratch_words",
-           "shared_bytes", "slot_ranges"]
+__all__ = ["BLOCK_SHARED", "COUNT", "MAX_SHARED", "merge_stage",
+           "merge_stage_cuda", "merge_stage_plain", "packet_blocks",
+           "scratch_words", "shared_bytes", "slot_ranges"]
 
 
 def slot_ranges(m: int) -> tuple[int, int]:

@@ -35,7 +35,7 @@ import torch
 from repro_torch.backend.ref import split_control as split_control_plain
 from repro_torch.kernels.build import (check, launch_counter, library,
                                        require_cuda, stream_handle)
-from repro_torch.kernels.merge_stage import MAX_SHARED as BLOCK_SHARED
+from repro_torch.kernels.merge_stage import BLOCK_SHARED
 from repro_torch.kernels.merge_stage import slot_ranges
 
 COUNT = launch_counter("split_control")

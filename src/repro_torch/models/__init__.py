@@ -1,2 +1,3 @@
-"""The parts of the LM stack that the serving engine runs (``common``,
-``lm``); the rest is a later slice of the port."""
+"""The LM model stack: building blocks (``common``), the block kinds
+(``moe``, ``mla``, ``ssd``, ``rglru``) and the model over every family
+(``lm``)."""

@@ -1,18 +1,24 @@
-"""Transformer building blocks the serving engine uses (port of the
-matching part of ``repro.models.common``).
+"""Shared transformer building blocks (port of ``repro.models.common``).
 
 Plain functions on tensors over explicit parameter dicts, with the
 reference's conventions: compute dtype bf16, norm scales and rotary tables
-f32, softmax and logits accumulation f32.  Dimension names: B batch, S
-sequence, D model, H query heads, K KV heads, G query heads per KV head
-(H = K * G), E head dim, F d_ff, V vocab.
+f32, softmax and logits accumulation f32.  Dimension names: B batch, S/T
+sequence (queries / keys), D model, H query heads, K KV heads, G query
+heads per KV head (H = K * G), E head dim, F d_ff, V vocab.
+
+Attention over a whole sequence is blockwise: a running softmax over
+key/value blocks inside a loop over query blocks, f32 scores and f32
+accumulators, as the reference's scans compute it, so a long prefill never
+holds an (S, T) score matrix.  Products the reference takes with
+``preferred_element_type=float32`` run on f32 copies of their bf16
+operands here (exact products, f32 sums).
 
 Initializers draw from an explicit ``torch.Generator`` and create their
 tensors on ``device`` (``"meta"`` gives shapes and dtypes without memory).
-The prefill attention, the M-RoPE branch and the one-hot embedding belong
-to the LM-stack port.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -26,8 +32,22 @@ DTYPE = torch.bfloat16
 # initializers
 # --------------------------------------------------------------------------
 
+# elements drawn in f32 at once: a larger leaf is drawn slice by slice of
+# its leading axis, so the f32 temporary stays one slice of it (a stacked
+# Mixtral ``wi`` is 16 x 8 x 4096 x 14336)
+DRAW_CHUNK = 1 << 26
+
+
 def ninit(gen: torch.Generator | None, shape, scale, device, dtype=DTYPE):
     """Normal(0, scale) drawn in f32 and cast to ``dtype``."""
+    shape = tuple(shape)
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    if math.prod(shape) > DRAW_CHUNK and len(shape) > 1:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = ninit(gen, shape[1:], scale, device, dtype)
+        return out
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (x * scale).to(dtype)
 
@@ -50,14 +70,29 @@ def rmsnorm(x, scale, eps=1e-6):
     return (h * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
-def rope_angles(positions, head_dim, theta):
-    """positions: (B, S) integer.  Returns (cos, sin): (B, S, head_dim/2)
-    f32 (the plain RoPE branch of the reference)."""
+def rope_angles(positions, head_dim, theta, mrope_sections=None):
+    """positions: (B, S) integer, or (3, B, S) for M-RoPE, whose
+    ``mrope_sections`` (t, h, w) give the rotary channels that take their
+    angle from the temporal, height and width position.  Returns (cos, sin):
+    (B, S, head_dim/2) f32."""
     half = head_dim // 2
     exponent = torch.arange(0, half, dtype=torch.float32,
                             device=positions.device) / half
     inv_freq = 1.0 / (theta ** exponent)
-    ang = positions.float()[..., None] * inv_freq
+    if mrope_sections is None:
+        ang = positions.float()[..., None] * inv_freq
+    else:
+        if positions.dim() != 3:
+            raise ValueError("M-RoPE needs (3, B, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        t, h, w = mrope_sections
+        if t + h + w != half:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not sum "
+                             f"to head_dim/2 = {half}")
+        sec = torch.tensor([0] * t + [1] * h + [2] * w,
+                           device=positions.device)
+        pos_c = positions.float()[sec]                 # (half, B, S)
+        ang = pos_c.movedim(0, -1) * inv_freq          # (B, S, half)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -69,6 +104,94 @@ def apply_rope(x, cos, sin):
     s = sin[:, :, None, :].float()
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
                      dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# blockwise (flash-style) attention
+# --------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def f32_einsum(eq, a, b):
+    """``einsum`` with f32 products and sums, as the reference's
+    ``preferred_element_type=float32``."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def blockwise_attention(q, k, v, *, causal=True, window=None, q_offset=0,
+                        q_block=512, kv_block=1024):
+    """q: (B, S, K, G, E); k: (B, T, K, E); v: (B, T, K, Ev).  Returns
+    (B, S, K, G, Ev).
+
+    A running softmax over key/value blocks nested in a loop over query
+    blocks; scores are (B, K, G, q_block, kv_block) f32 tiles only.
+    ``q_offset`` positions the queries absolutely; ``window`` keeps keys
+    less than ``window`` positions behind the query.  The value head dim
+    may differ from the query's (MLA)."""
+    b, s, kh, g, e = q.shape
+    t = k.shape[1]
+    ve = v.shape[-1]
+    if k.shape[-1] != e:
+        raise ValueError(f"key head dim {k.shape[-1]} != query's {e}")
+    q_block = min(q_block, s)
+    kv_block = min(kv_block, t)
+    if s % q_block or t % kv_block:
+        raise ValueError(f"blocks ({q_block}, {kv_block}) do not divide "
+                         f"the lengths ({s}, {t})")
+    scale = e ** -0.5
+    dev = q.device
+    outs = []
+    for qi in range(s // q_block):
+        qblk = q[:, qi * q_block:(qi + 1) * q_block]
+        qpos = torch.arange(q_block, device=dev) + q_offset + qi * q_block
+        m = torch.full((b, kh, g, q_block), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        norm = torch.zeros((b, kh, g, q_block), dtype=torch.float32,
+                           device=dev)
+        acc = torch.zeros((b, kh, g, q_block, ve), dtype=torch.float32,
+                          device=dev)
+        for ki in range(t // kv_block):
+            kblk = k[:, ki * kv_block:(ki + 1) * kv_block]
+            vblk = v[:, ki * kv_block:(ki + 1) * kv_block]
+            kvpos = torch.arange(kv_block, device=dev) + ki * kv_block
+            srel = f32_einsum("bqkge,btke->bkgqt", qblk, kblk) * scale
+            mask = torch.ones((q_block, kv_block), dtype=torch.bool,
+                              device=dev)
+            if causal:
+                mask &= qpos[:, None] >= kvpos[None, :]
+            if window is not None:
+                mask &= (qpos[:, None] - kvpos[None, :]) < window
+            srel = torch.where(mask, srel, NEG_INF)
+            m_new = torch.maximum(m, srel.amax(dim=-1))
+            p = torch.exp(srel - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            norm = norm * alpha + p.sum(dim=-1)
+            pv = f32_einsum("bkgqt,btke->bkgqe", p.to(vblk.dtype), vblk)
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(norm[..., None], min=1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, window=None):
+    """Single-token attention over a cache.  q: (B, K, G, E); caches:
+    (B, T, K, E); lengths: (B,) tokens valid (the new token's k/v already
+    written at lengths - 1)."""
+    b, t, kh, e = k_cache.shape
+    scale = e ** -0.5
+    s = f32_einsum("bkge,btke->bkgt", q, k_cache) * scale
+    pos = torch.arange(t, device=q.device)[None, :]
+    mask = pos < lengths[:, None]
+    if window is not None:
+        mask &= pos >= (lengths[:, None] - window)
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    norm = p.sum(dim=-1, keepdim=True)
+    out = f32_einsum("bkgt,btke->bkge", (p / norm).to(v_cache.dtype),
+                      v_cache)
+    return out.to(q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -94,7 +217,7 @@ def attn_init(gen, cfg: ModelConfig, device, lead: tuple[int, ...] = ()):
     return p
 
 
-def _proj(x, w):
+def proj(x, w):
     """x (B, S, D) against w (D, ...) -> (B, S, ...)."""
     return (x @ w.reshape(w.shape[0], -1)).reshape(x.shape[:-1] + w.shape[1:])
 
@@ -103,9 +226,9 @@ def attn_qkv(p, x, cfg: ModelConfig, cos, sin):
     """Project + position-encode.
     x: (B,S,D) -> q (B,S,K,G,E), k/v (B,S,K,E)."""
     h, k = cfg.num_heads, cfg.num_kv_heads
-    q = _proj(x, p["wq"])
-    kx = _proj(x, p["wk"])
-    vx = _proj(x, p["wv"])
+    q = proj(x, p["wq"])
+    kx = proj(x, p["wk"])
+    vx = proj(x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         kx = kx + p["bk"]
@@ -158,8 +281,15 @@ def embed_init(gen, cfg: ModelConfig, device):
     return p
 
 
-def embed_apply(p, tokens, cfg: ModelConfig):
-    x = p["table"][tokens]
+def embed_apply(p, tokens, cfg: ModelConfig, one_hot_matmul: bool = False):
+    """Token embeddings; ``one_hot_matmul`` takes them as a one-hot product
+    with the table (the reference's vocab-parallel form), the same rows."""
+    table = p["table"]
+    if one_hot_matmul:
+        oh = F.one_hot(tokens.long(), table.shape[0]).to(table.dtype)
+        x = oh @ table
+    else:
+        x = table[tokens.long()]
     if cfg.embed_scale:
         # gemma scaling; sqrt(d_model) is rounded to the table's dtype first
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
@@ -167,7 +297,11 @@ def embed_apply(p, tokens, cfg: ModelConfig):
     return x
 
 
-def unembed_apply(p, x, cfg: ModelConfig):
+def unembed_apply(p, x, cfg: ModelConfig, shard=None):
+    """Logits; ``shard`` is the hook through which a multi-device layer
+    keeps them vocab-sharded."""
     if cfg.tie_embeddings:
-        return x @ p["table"].T
-    return x @ p["unembed"]
+        logits = x @ p["table"].T
+    else:
+        logits = x @ p["unembed"]
+    return logits if shard is None else shard(logits, "logits")

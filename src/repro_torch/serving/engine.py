@@ -32,7 +32,8 @@ from repro_torch.backend import dispatch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import counters as C
 from repro_torch.models import common as cm
-from repro_torch.models.lm import LM, ported_segments
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.lm import LM, segments_for
 from repro_torch.serving import pool as pool_mod
 from repro_torch.serving.pool import PoolConfig
 
@@ -78,7 +79,8 @@ class EngineConfig:
 
 
 class ServeEngine:
-    """Single-shard engine (dense/GQA archs) on the parameters' device.
+    """Single-shard engine (dense, MoE and VLM GQA archs) on the
+    parameters' device; an MoE layer runs ``moe_apply`` on the token.
 
     ``backend`` resolves the ``paged_attention`` primitive (None = auto:
     the CUDA kernel for tensors on the card, the plain version on the
@@ -90,7 +92,7 @@ class ServeEngine:
         if cfg.family not in ("dense", "moe", "vlm") or cfg.mla is not None:
             raise ValueError("the engine supports paged GQA archs "
                              f"(dense, moe, vlm), not {cfg.name}")
-        (self.seg,) = ported_segments(cfg)
+        (self.seg,) = segments_for(cfg)
         self.lm = lm
         self.params = params
         self.ecfg = ecfg
@@ -229,7 +231,10 @@ class ServeEngine:
                             lengths)
             x = x + cm.attn_out(pl_["attn"], o[:, None])
             h2 = cm.rmsnorm(x, pl_["ln2"], cfg.norm_eps)
-            x = x + cm.mlp_apply(pl_["ffn"], h2, cfg.act)
+            if "router" in pl_["ffn"]:
+                x = x + moe_mod.moe_apply(pl_["ffn"], h2, cfg, cfg.act)[0]
+            else:
+                x = x + cm.mlp_apply(pl_["ffn"], h2, cfg.act)
         x = cm.rmsnorm(x, lmp["final_norm"], cfg.norm_eps)
         logits = cm.unembed_apply(lmp["embed"], x, cfg)[0, 0]
         return logits, torch.stack(k_out), torch.stack(v_out)

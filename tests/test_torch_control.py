@@ -703,19 +703,34 @@ def test_merge_stage_cuda_raises_past_its_shared_memory():
     assert launch_counts()["merge_stage"] == 0
 
 
+def _merge_last_shared(ms, m: int) -> int:
+    """The largest batch whose Merge layout at M ``m`` fits in one block's
+    dynamic shared memory."""
+    b = (ms.MAX_SHARED - ms.shared_bytes(0, m)) // 17
+    assert ms.shared_bytes(b, m) <= ms.MAX_SHARED < ms.shared_bytes(b + 1, m)
+    return b
+
+
 @pytest.mark.parametrize("pipes,b,m,past", [
     (1, 256, 1 << 20, False),                 # 128 blocks of 8192 slots
     (2, 227 * 1024 // 17 + 1, 16, True),      # the staged rows
-    (1, 13488, 4096, False),                  # 232432 B: at the limit
-    (1, 13489, 4096, True),                   # one packet past it
+    (1, "last", 4096, False),                 # the most packets in it
+    (1, "last+1", 4096, True),                # one packet past it
+    (1, 13488, 4096, True),                   # 232432 B: past the 48 B of
+    (1, 13489, 4096, True),                   # static shared memory
 ])
 def test_merge_stage_cuda_passes_device_scratch_past_its_shared_memory(
         monkeypatch, pipes, b, m, past):
-    """Past ``MAX_SHARED`` bytes a block the launcher hands the kernel a
+    """Past ``MAX_SHARED`` bytes a block (Hopper's 227 KB less the
+    kernel's 48 B of static shared memory) the launcher hands the kernel a
     device-memory scratch of ``scratch_words`` int32 words a block (16-byte
     aligned, P x N blocks) and still launches once; under it, a null
-    scratch."""
+    scratch.  ``"last"`` is the largest batch whose ``shared_bytes`` fits
+    in ``MAX_SHARED``."""
     from repro_torch.kernels import merge_stage as MS
+    assert MS.MAX_SHARED == 227 * 1024 - 48
+    if isinstance(b, str):
+        b = _merge_last_shared(MS, m) + (b == "last+1")
     calls, scratch = [], []
     _fake_library(monkeypatch, MS, calls)
     real_empty = torch.empty

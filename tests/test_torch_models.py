@@ -29,10 +29,6 @@ from repro_torch.configs.reduced import reduced  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models.lm import LM, segments_for  # noqa: E402
 
-DENSE = [n for n in jconfigs.names()
-         if jconfigs.get(n).family in ("dense", "vlm")]
-
-
 def _np(x):
     return np.asarray(x.float() if torch.is_tensor(x) else
                       jnp.asarray(x, jnp.float32))
@@ -100,7 +96,7 @@ def test_reduced_params_layout_and_conversion(trees, name):
         ref_wq.view(np.uint16))
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", jconfigs.names())
 def test_full_params_layout_matches_eval_shape(name):
     jcfg = jconfigs.get(name)
     shapes = jax.eval_shape(JLM(jcfg, remat_policy="off").init_params,
@@ -109,14 +105,6 @@ def test_full_params_layout_matches_eval_shape(name):
     assert _layout(own) == _layout(shapes)
     assert [dataclasses.astuple(s) for s in segments_for(configs.get(name))] \
         == [dataclasses.astuple(s) for s in jsegments_for(jcfg)]
-
-
-@pytest.mark.parametrize("name,needs", [("mixtral-8x7b", "models/moe.py"),
-                                        ("mamba2-1.3b", "models/ssd.py"),
-                                        ("deepseek-v2-236b", "models/mla.py")])
-def test_later_families_raise_naming_their_slice(name, needs):
-    with pytest.raises(NotImplementedError, match=needs):
-        LM(configs.get(name)).init_params(device="meta")
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Parked-KV serving in the port against the reference: the page pool
 bit-exact against ``repro.serving.pool`` on seeded operation sequences;
 the engine against ``repro.serving.engine.ServeEngine`` on reduced
-configs from converted parameters (logits within the reference's engine
+configs (Mixtral's MoE among them) from converted parameters (logits within the reference's engine
 tolerance of 0.08 under teacher forcing, pool counters, pages,
 generations, drops and header accounting identical); the launch entry
 point on the CPU."""
@@ -192,7 +192,7 @@ POOL = dict(num_pages=4, page_tokens=2, max_exp=1)
 
 
 @pytest.fixture(scope="module", params=["gemma-7b", "qwen2.5-3b",
-                                        "qwen3-32b"])
+                                        "qwen3-32b", "mixtral-8x7b"])
 def engines(request):
     """Both engines through the lifecycle from the same parameters."""
     name = request.param
@@ -274,10 +274,14 @@ def test_engine_matches_reference_full_forward():
 
 
 def test_engine_rejects_later_families_and_missing_pages():
-    cfg = reduced(configs.get("mixtral-8x7b"))
-    with pytest.raises(NotImplementedError, match="models/moe.py"):
-        tengine.ServeEngine(LM(cfg), {"final_norm": torch.ones(64)},
-                            tengine.EngineConfig())
+    """MLA, SSM, hybrid and encoder-decoder archs are refused, as the
+    reference engine's assert refuses them (Mixtral's MoE now serves)."""
+    for name in ("deepseek-v2-236b", "mamba2-1.3b", "recurrentgemma-9b",
+                 "seamless-m4t-large-v2"):
+        cfg = reduced(configs.get(name))
+        with pytest.raises(ValueError, match="paged GQA"):
+            tengine.ServeEngine(LM(cfg), {"final_norm": torch.ones(64)},
+                                tengine.EngineConfig())
     cfg = reduced(configs.get("gemma-7b"))
     eng = tengine.ServeEngine(
         LM(cfg), serve_mod.init_params(cfg, "cpu"),
