@@ -1,5 +1,5 @@
-"""Run the PyTorch port's dataplane and LM stack on one NVIDIA card and
-check them.
+"""Run the PyTorch port's dataplane, LM stack and training on one NVIDIA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -157,7 +157,24 @@ Phases (any failure raises, so the script exits non-zero):
     logits within 0.08 (past it, within twice the CPU run's own bf16 error
     against its f32 run).  Walls, tokens/s and peak device memory go into
     an ``lm`` JSON line.
-11. The ``lm`` and ``kernels`` JSON lines (launches per path,
+11. Train (no kernel of the port lies on this path; every launch count of
+    the phase must stay 0): ``launch.train`` on reduced Qwen2.5-3B and
+    Mixtral-8x7B for 10 steps on the CPU and on the card from the same
+    parameters and batches, the card taking the CPU run's MoE routing
+    (the steps where its own router would differ are printed), loss
+    curves within 0.01, the last grad norm within 0.01 relative and the
+    parameters' update over the run within 0.15 relative; kill and resume on the card (20 steps saving at
+    10, against 10 with ``stop_after`` then a resumed run) bit for bit
+    under ``torch.use_deterministic_algorithms``; Qwen2.5-3B at its
+    published widths (36 layers, seeded random weights) taking two AdamW
+    steps on 2 x 1024 tokens of the synthetic stream under each remat
+    policy (``minimal``, ``dots``, ``off``): finite losses, the second
+    below the first, parameters moved, the three policies' first-step
+    loss and grad norm within 1e-3 relative; each step's wall, its split
+    at the gradient hook (forward + backward, ``apply_updates``) and the
+    peak device memory beside the card's name and power limit, and a
+    ``train`` JSON line.
+12. The ``lm`` and ``kernels`` JSON lines (launches per path,
     ``launches_stream``, ``launches_adversarial`` and, for
     ``paged_attention``, ``launches_mixtral`` included), the card line,
     and the final ``ok`` line.
@@ -187,6 +204,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import sys
 import time
@@ -270,6 +288,22 @@ LM_ENC_FRAMES = 128     # the speech stub's frames
 SELF_REL = 0.06
 REDUCED_LOGIT_ERR = 0.08   # reduced Gemma: card vs CPU (the reference's
                            # engine tolerance, tests/test_serving.py)
+# the train phase: reduced configs card vs CPU (steps of launch.train's
+# defaults: seq 128, batch 8); kill and resume; Qwen2.5-3B at full width,
+# two AdamW steps on one (batch, seq) draw of the synthetic stream per
+# remat policy.  Card vs CPU bounds (``train_gaps``) on the loss curve,
+# the last step's grad norm and the parameters' update over the run: a
+# learning rate 10 % off on one side moves these by 0.048-0.052,
+# 0.025-0.032 and 0.23-0.27 on the CPU, a 2 % one by 0.011-0.014,
+# 0.005-0.008 and 0.10-0.16 (tools/train_gap_sensitivity.py); the card
+# against the CPU in PERF.md section 6
+TRAIN_REDUCED = ("qwen2.5-3b", "mixtral-8x7b")
+TRAIN_STEPS = 10
+TRAIN_LOSS_ERR = 0.01
+TRAIN_GNORM_REL = 0.01
+TRAIN_UPDATE_REL = 0.15
+FULL_TRAIN_SHAPE = (2, 1024)
+REMAT_REL = 1e-3
 
 
 def device_ms(fn, reps: int = 30) -> float:
@@ -2291,10 +2325,11 @@ def routing(pin=None):
     rec = Routing()
 
     def call(p, x, cfg, act):
-        probs = torch.softmax(x.float() @ p["router"], dim=-1)
-        top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1)
-        own = top.indices[..., :-1]
-        margin = top.values[..., -2] - top.values[..., -1]
+        with torch.no_grad():  # a record, not part of any loss
+            probs = torch.softmax(x.float() @ p["router"], dim=-1)
+            top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1)
+            own = top.indices[..., :-1]
+            margin = top.values[..., -2] - top.values[..., -1]
         if pin is None:
             rec.calls.append((own, margin))
             return inner(p, x, cfg, act)
@@ -2382,6 +2417,12 @@ class F32Layers:
 
     def __getitem__(self, li):
         return self.stacked[li].float()
+
+    def unbind(self, dim):
+        """The layer loop's view of the stack: itself, each layer cast when
+        it is taken."""
+        assert dim == 0
+        return self
 
 
 def as_f32(params: dict) -> dict:
@@ -2551,10 +2592,261 @@ def lm_phase(dev):
     rows["reduced"] = [reduced_card_vs_cpu(n, dev) for n in configs.names()]
     return counts, rows
 
+# --------------------------------------------------------------------------
+# train phase: the training slice on the card
+# --------------------------------------------------------------------------
+
+def train_gaps(name, want, got) -> tuple[float, float, float]:
+    """Two ``launch.train`` runs of the reduced config ``name`` with its
+    defaults (``want`` the reference run): the largest loss gap, the last
+    step's grad norm gap relative to ``want``'s, and the gap of the
+    parameters' updates over the run relative to ``want``'s update,
+    ||(p_got - p0) - (p_want - p0)|| / ||p_want - p0||, p0 the runs'
+    common start."""
+    from repro_torch import configs
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.launch.train import RunConfig
+    from repro_torch.models.lm import LM
+    from repro_torch.training.tree import items
+    err = max(abs(a - b) for a, b in zip(want["losses"], got["losses"]))
+    g0, g1 = want["grad_norms"][-1], got["grad_norms"][-1]
+    start = dict(items(LM(reduced(configs.get(name))).init_params(
+        torch.Generator().manual_seed(RunConfig(arch=name).seed))))
+    p_want = dict(items(want["state"]["params"]))
+    p_got = dict(items(got["state"]["params"]))
+    gap = norm = 0.0
+    for k, p0 in start.items():
+        step_want = p_want[k].cpu().float() - p0.float()
+        step_got = p_got[k].cpu().float() - p0.float()
+        gap += float((step_got - step_want).square().sum())
+        norm += float(step_want.square().sum())
+    return err, abs(g1 - g0) / g0, math.sqrt(gap / norm)
+
+
+def train_card_vs_cpu(name, dev) -> dict:
+    """``launch.train`` on a reduced config for TRAIN_STEPS steps on the
+    CPU and on the card, from the same parameters (one CPU draw) and the
+    same batches (the stream draws on the CPU); the card run takes the CPU
+    run's MoE routing call by call (forward and rematerialized forward),
+    and the steps at which its own router would have chosen otherwise
+    (near ties) are reported.  Loss curves within TRAIN_LOSS_ERR, the
+    last step's grad norm within TRAIN_GNORM_REL and the parameters'
+    update over the run within TRAIN_UPDATE_REL, relative."""
+    from repro_torch.launch.train import RunConfig, train
+    run = dict(arch=name, steps=TRAIN_STEPS, log_every=0)
+    out = {}
+    with routing() as rec_cpu:
+        t0 = time.perf_counter()
+        out["cpu"] = train(RunConfig(device="cpu", **run))
+        cpu_s = time.perf_counter() - t0
+    with routing(pin=rec_cpu.calls if rec_cpu.calls else None) as rec:
+        t0 = time.perf_counter()
+        out["card"] = train(RunConfig(device=str(dev), **run))
+        sync(dev)
+        card_s = time.perf_counter() - t0
+    cpu_l, card_l = out["cpu"]["losses"], out["card"]["losses"]
+    cpu_g = out["cpu"]["grad_norms"][-1]
+    card_g = out["card"]["grad_norms"][-1]
+    err, gnorm_rel, update_rel = train_gaps(name, out["cpu"], out["card"])
+    apart, most = [], 0.0
+    if rec.flips:
+        per_step = len(rec.flips) // TRAIN_STEPS
+        apart = sorted({i // per_step for i, (flip, _) in
+                        enumerate(rec.flips) if bool(flip.any())})
+        most = max((float(m[f].max()) for f, m in rec.flips
+                    if bool(f.any())), default=0.0)
+    tokens, least = rec.apart()
+    print(f"train reduced {name}: {TRAIN_STEPS} steps, card {card_s:.3f} s, "
+          f"CPU {cpu_s:.3f} s; losses card "
+          f"{[round(x, 6) for x in card_l]}, CPU "
+          f"{[round(x, 6) for x in cpu_l]}; max |dloss| {err:.6f} "
+          f"(bound {TRAIN_LOSS_ERR}); last grad_norm card {card_g:.6f}, "
+          f"CPU {cpu_g:.6f}, relative {gnorm_rel:.6f} (bound "
+          f"{TRAIN_GNORM_REL}); parameter update relative gap "
+          f"{update_rel:.6f} (bound {TRAIN_UPDATE_REL})"
+          + (f"; MoE: the card takes the CPU run's experts, its own router "
+             f"chose otherwise at steps {apart} ({tokens} token choices, "
+             f"top-k margins {least:.3g} to {most:.3g})" if apart else
+             "; MoE routed alike" if rec.flips else ""))
+    if (not all(math.isfinite(x) for x in card_l) or err > TRAIN_LOSS_ERR
+            or not gnorm_rel <= TRAIN_GNORM_REL
+            or not update_rel <= TRAIN_UPDATE_REL):
+        raise AssertionError(f"train reduced {name}: card losses {card_l} "
+                             f"vs CPU {cpu_l}: max |d| {err}; last grad "
+                             f"norm relative {gnorm_rel}; update relative "
+                             f"{update_rel}")
+    return {"name": name, "card_losses": card_l, "cpu_losses": cpu_l,
+            "max_abs_err": err, "grad_norm_rel": gnorm_rel,
+            "update_rel": update_rel, "routed_apart_steps": apart,
+            "apart_tokens": tokens, "apart_margin_max": most,
+            "card_seconds": card_s, "cpu_seconds": cpu_s}
+
+
+def train_resume(dev) -> dict:
+    """Kill and resume on the card: 20 steps of reduced Qwen2.5-3B saving
+    at step 10, against 10 steps with ``stop_after=10`` then a resumed
+    run; losses and every state leaf equal bit for bit.  Run under
+    ``torch.use_deterministic_algorithms`` (the embedding's backward is an
+    indexed accumulate, non-deterministic on CUDA by default)."""
+    import tempfile
+
+    from repro_torch.launch.train import RunConfig, train
+    from repro_torch.training.tree import items
+    run = dict(arch="qwen2.5-3b", steps=20, ckpt_every=10, log_every=0,
+               device=str(dev))
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+            full = train(RunConfig(ckpt_dir=f"{d}/a", **run))
+            train(RunConfig(ckpt_dir=f"{d}/b", stop_after=10, **run))
+            resumed = train(RunConfig(ckpt_dir=f"{d}/b", **run))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got, want = dict(items(resumed["state"])), dict(items(full["state"]))
+    differ = [k for k, v in want.items() if not torch.equal(got[k], v)]
+    if (resumed["losses"] != full["losses"][10:] or differ
+            or sorted(got) != sorted(want)):
+        raise AssertionError(f"train resume: losses {resumed['losses']} vs "
+                             f"{full['losses'][10:]}; leaves differ: "
+                             f"{differ}")
+    print(f"train resume: reduced qwen2.5-3b 20 steps on the card, killed "
+          f"after 10 and resumed: losses of steps 10-19 and all "
+          f"{len(want)} state leaves identical bit for bit (deterministic "
+          f"algorithms on)")
+    return {"leaves": len(want), "losses": full["losses"]}
+
+
+def full_train_step(cfg, policy, batch, dev) -> dict:
+    """Two AdamW steps of the full config under ``policy`` on ``batch``,
+    from the serving phase's seeded weights drawn anew on the card: per
+    step the wall (host clock ending in a synchronize), its split at the
+    gradient hook (forward + backward, then ``apply_updates``), loss and
+    grad norm; the peak device memory of the two steps."""
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models.lm import LM
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import TrainConfig, train_step
+
+    params = init_params(cfg, dev)
+    state = {"params": params, "opt": init_opt_state(params)}
+    probe = {"embed.table[:64]": params["embed"]["table"][:64].clone(),
+             "blocks.sub0.ffn.wi[0, :64]":
+                 params["blocks"]["sub0"]["ffn"]["wi"][0, :64].clone(),
+             "final_norm": params["final_norm"].clone()}
+    sync(dev)
+    held_bytes = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    lm = LM(cfg, remat_policy=policy)
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-4, warmup_steps=1,
+                                         total_steps=100))
+    steps = []
+    for _ in range(2):
+        marks = {}
+
+        def mark(grads):
+            sync(dev)
+            marks["grads"] = time.perf_counter()
+            return grads
+
+        sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = train_step(lm, tcfg, state, batch,
+                                    grad_transform=mark)
+        sync(dev)
+        t1 = time.perf_counter()
+        steps.append(dict(wall_s=t1 - t0, backward_s=marks["grads"] - t0,
+                          update_s=t1 - marks["grads"],
+                          loss=metrics["loss"].item(),
+                          grad_norm=metrics["grad_norm"].item()))
+    peak = torch.cuda.max_memory_allocated(dev)
+    now = {"embed.table[:64]": state["params"]["embed"]["table"][:64],
+           "blocks.sub0.ffn.wi[0, :64]":
+               state["params"]["blocks"]["sub0"]["ffn"]["wi"][0, :64],
+           "final_norm": state["params"]["final_norm"]}
+    moved = {k: not torch.equal(now[k], v) for k, v in probe.items()}
+    del state, params, probe, now
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(policy=policy, steps=steps, peak_bytes=peak,
+                held_bytes=held_bytes, moved=moved)
+
+
+def train_phase(dev):
+    """The train phase: reduced configs card vs CPU, kill and resume on the
+    card, then Qwen2.5-3B at its published widths (all 36 layers), two
+    AdamW steps under each remat policy.  No kernel of the port lies on
+    this path: every launch count of the phase must stay 0.  Returns the
+    rows it printed."""
+    from repro_torch import configs
+    from repro_torch.device import card_line
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.training.data import DataConfig, SyntheticStream
+
+    reset_launch_counts()
+    rows = {"reduced": [train_card_vs_cpu(n, dev) for n in TRAIN_REDUCED]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["resume"] = train_resume(dev)
+
+    cfg = configs.get("qwen2.5-3b")
+    b, s = FULL_TRAIN_SHAPE
+    batch = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                       global_batch=b, seed=SEED),
+                            device=dev).batch_at(0)
+    card = card_line(dev)
+    full = []
+    for policy in ("minimal", "dots", "off"):
+        r = full_train_step(cfg, policy, batch, dev)
+        full.append(r)
+        st = r["steps"]
+        print(f"train full {cfg.name} ({cfg.num_layers} layers, d_model "
+              f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+              f"d_ff {cfg.d_ff}, vocab {cfg.vocab_padded()}, "
+              f"{cfg.param_count()} parameters) remat {policy}, {b} x {s} "
+              f"tokens, on {card}: "
+              + "; ".join(f"step {i + 1}: wall {x['wall_s']:.4f} s "
+                          f"(forward + backward {x['backward_s']:.4f} s, "
+                          f"apply_updates {x['update_s']:.4f} s), loss "
+                          f"{x['loss']:.6f}, grad_norm {x['grad_norm']:.6f}"
+                          for i, x in enumerate(st))
+              + f"; peak device memory {r['peak_bytes']} B "
+              f"({r['held_bytes']} B held before the steps); params moved "
+              f"{r['moved']}")
+        if not all(math.isfinite(x["loss"]) for x in st):
+            raise AssertionError(f"train full {policy}: loss not finite")
+        if not st[1]["loss"] < st[0]["loss"]:
+            raise AssertionError(f"train full {policy}: second loss "
+                                 f"{st[1]['loss']} not below the first "
+                                 f"{st[0]['loss']}")
+        if not all(r["moved"].values()):
+            raise AssertionError(f"train full {policy}: params did not "
+                                 f"move: {r['moved']}")
+    first = full[0]["steps"][0]
+    for r in full[1:]:
+        x = r["steps"][0]
+        for key in ("loss", "grad_norm"):
+            if abs(x[key] - first[key]) > REMAT_REL * abs(first[key]):
+                raise AssertionError(
+                    f"train full: remat {r['policy']} step 1 {key} "
+                    f"{x[key]} vs minimal {first[key]}")
+    rows["full"] = full
+    counts = launch_counts()
+    print(f"train: kernel launches during the phase {counts} (no kernel "
+          f"of the port lies on the training path)")
+    if any(counts.values()):
+        raise AssertionError(f"train: kernels launched: {counts}")
+    rows["launches"] = counts
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 1
+    # cuBLAS reads this when it makes its handle: the train phase's
+    # kill-and-resume check runs under deterministic algorithms, which
+    # need it set before the first product on the card
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.device import card_line
     from repro_torch.kernels import build
@@ -2604,6 +2896,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts["mixtral"], lm_rows = lm_phase(dev)
     stamp("LM phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_rows = train_phase(dev)
+    stamp("train phase")
 
     # ``launches`` is the count on the kernel's own main path: pipes8 for
     # the Split -> FW -> NAT -> Merge kernels (0 for crc16 and
@@ -2649,6 +2945,7 @@ def main() -> int:
                 for label, *_ in SPLIT_SHAPES if label}
         kernels.append(row)
     print(json.dumps({"lm": lm_rows}))
+    print(json.dumps({"train": train_rows}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

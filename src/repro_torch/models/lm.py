@@ -20,16 +20,27 @@ axis, so ``convert.lm_params`` carries them across unchanged.  ``shard``
 is the hook through which a multi-device layer constrains layouts
 (identity here).  The reference's ``unroll``, ``decode_carry_cache`` and
 ``assume_uniform_decode`` only steer XLA's lowering and give the same
-math, so they have no counterpart; ``remat_policy`` and
-``vocab_parallel`` belong to the training and multi-device slices.
+math, so they have no counterpart; ``vocab_parallel`` belongs to the
+multi-device slice.
+
+``remat_policy`` (``minimal | dots | off``) rematerializes each layer of
+the train-phase forward in the backward pass, as the reference's
+``jax.checkpoint`` of its scan body: ``minimal`` keeps only each layer's
+inputs (``torch.utils.checkpoint``), ``dots`` also the outputs of its
+matrix products (selective checkpointing, the reference's
+``checkpoint_dots``), ``off`` keeps every activation.  The three give the
+same values.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
@@ -283,10 +294,40 @@ def block_apply(kind: str, p, x, ctx: Ctx, cache):
     return ctx.shard(x, "act"), cache, aux
 
 
-def _layer(stacked: dict, li: int) -> dict:
-    """Layer ``li`` of a dict of stacked (L, ...) tensors (views)."""
-    return {k: _layer(v, li) if isinstance(v, dict) else v[li]
+def _unbind(stacked: dict) -> dict:
+    """Each stacked (L, ...) leaf as the sequence of its layers: views, one
+    ``unbind`` a leaf, whose backward stacks the layers' gradients once
+    (indexing each layer out of the stack would add a full-size gradient
+    per layer)."""
+    return {k: _unbind(v) if isinstance(v, dict) else v.unbind(0)
             for k, v in stacked.items()}
+
+
+def _layer(layers: dict, li: int) -> dict:
+    """Layer ``li`` of ``_unbind``'s result."""
+    return {k: _layer(v, li) if isinstance(v, dict) else v[li]
+            for k, v in layers.items()}
+
+
+def _layer_apply(kinds, p_layer, x, aux, ctx: Ctx, c_layer=None):
+    """One layer of a segment: its blocks in order.  Returns (x, aux plus
+    the layer's, the layer's cache or None)."""
+    new_c = {}
+    for i, kind in enumerate(kinds):
+        ci = None if c_layer is None else c_layer[f"sub{i}"]
+        x, ci, a = block_apply(kind, p_layer[f"sub{i}"], x, ctx, ci)
+        new_c[f"sub{i}"] = ci
+        aux = aux + a
+    return x, aux, (None if all(v is None for v in new_c.values())
+                    else new_c)
+
+
+# ``dots``: the matrix products' outputs are saved, the rest recomputed
+_SAVE_DOTS = functools.partial(
+    create_selective_checkpoint_contexts,
+    [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+     torch.ops.aten.addmm.default])
+REMAT_POLICIES = ("minimal", "dots", "off")
 
 
 def _stack(trees: list) -> dict:
@@ -303,7 +344,13 @@ def _stack(trees: list) -> dict:
 @dataclasses.dataclass(frozen=True)
 class LM:
     cfg: ModelConfig
+    remat_policy: str = "minimal"   # minimal | dots | off
     attn_blocks: Optional[tuple] = None  # (q_block, kv_block) override
+
+    def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r} is not "
+                             f"one of {REMAT_POLICIES}")
 
     def _ctx(self, **kw) -> Ctx:
         return Ctx(cfg=self.cfg, attn_blocks=self.attn_blocks, **kw)
@@ -343,18 +390,27 @@ class LM:
         """Run a segment's layers in order.  Returns (x, new_cache stacked
         on the layer axis or None, aux summed over the layers)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        p_layers = _unbind(seg_params)
+        c_layers = None if cache is None else _unbind(cache)
+        remat = (ctx.phase == "train" and self.remat_policy != "off"
+                 and torch.is_grad_enabled())
+        kw = {"context_fn": _SAVE_DOTS} if self.remat_policy == "dots" else {}
+
+        def body(x, aux, p_layer):
+            return _layer_apply(seg.kinds, p_layer, x, aux, ctx)[:2]
+
         caches = []
         for li in range(seg.count):
-            p_layer = _layer(seg_params, li)
-            c_layer = None if cache is None else _layer(cache, li)
-            new_c = {}
-            for i, kind in enumerate(seg.kinds):
-                ci = None if c_layer is None else c_layer[f"sub{i}"]
-                x, ci, a = block_apply(kind, p_layer[f"sub{i}"], x, ctx, ci)
-                new_c[f"sub{i}"] = ci
-                aux = aux + a
-            caches.append(None if all(v is None for v in new_c.values())
-                          else new_c)
+            p_layer = _layer(p_layers, li)
+            if remat:
+                x, aux = checkpoint(body, x, aux, p_layer,
+                                    use_reentrant=False, **kw)
+                caches.append(None)
+                continue
+            x, aux, new_c = _layer_apply(
+                seg.kinds, p_layer, x, aux, ctx,
+                None if c_layers is None else _layer(c_layers, li))
+            caches.append(new_c)
         return x, (None if caches[0] is None else _stack(caches)), aux
 
     # -- positions / rope ----------------------------------------------------

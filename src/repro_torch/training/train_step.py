@@ -1,0 +1,94 @@
+"""The training step: loss -> gradients -> (optional compression) -> AdamW
+(port of ``repro.training.train_step``).
+
+Compression is a ``grad_transform`` (``launch.train`` passes
+``compression.compress_decompress`` with its error state under
+``--compress-grads``); ``TrainConfig`` carries no switch for it, since the
+reference's ``TrainConfig.compress_grads`` is read by nothing.
+
+Gradients come from ``torch.autograd.grad`` over the parameter leaves, in
+the parameters' dtype (bf16 gradients for bf16 parameters, as the
+reference's).  AdamW updates the state's tensors in place
+(``optimizer.apply_updates``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.models.lm import LM, Shard, _identity
+from repro_torch.training import optimizer as opt
+from repro_torch.training.tree import leaves, tree_map, unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    adamw: opt.AdamWConfig = opt.AdamWConfig()
+    microbatch: int = 0           # 0 = no gradient accumulation
+
+
+def init_train_state(lm: LM, generator: torch.Generator | None = None,
+                     device=None) -> dict:
+    """Parameters drawn from ``generator`` (``device="meta"``: shapes and
+    dtypes only) and a fresh optimizer state."""
+    params = lm.init_params(generator, device=device)
+    return {"params": params, "opt": opt.init_opt_state(params)}
+
+
+def _grads(lm: LM, params, batch, shard: Shard):
+    """(loss, metrics, gradients) of ``lm.loss`` at ``params``."""
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, metrics = lm.loss(live, batch, shard)
+    grads = torch.autograd.grad(loss, leaves(live), materialize_grads=True)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            unflatten(params, grads))
+
+
+def train_step(lm: LM, tcfg: TrainConfig, state: dict, batch: dict,
+               shard: Shard = _identity,
+               grad_transform: Optional[Callable] = None):
+    """One optimizer step.  ``grad_transform`` hooks gradient compression
+    (training/compression.py) between backprop and AdamW.  Returns (state,
+    metrics: ce, aux, lr, grad_norm, loss); the state's tensors are updated
+    in place."""
+    b = batch["tokens"].shape[0]
+
+    def slice_batch(i, mb):
+        def sl(a):
+            axis = 1 if (a.dim() >= 2 and a.shape[0] == 3
+                         and a.shape[1] == b) else 0
+            return a.narrow(axis, i * mb, mb)
+        return {k: sl(v) for k, v in batch.items()}
+
+    if tcfg.microbatch and tcfg.microbatch < b:
+        # gradient accumulation over microbatches (sequential, memory-lean)
+        mb = tcfg.microbatch
+        if b % mb:
+            raise ValueError(f"batch {b} is not a multiple of the "
+                             f"microbatch {mb}")
+        n = b // mb
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device),
+                         state["params"])
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=batch["tokens"].device)
+        for i in range(n):
+            loss_i, _, g = _grads(lm, state["params"], slice_batch(i, mb),
+                                  shard)
+            tree_map(lambda ga, gi: ga.add_(gi.float()), grads, g)
+            loss = loss + loss_i
+        grads = tree_map(lambda g: opt.true_div(g, n), grads)
+        loss = opt.true_div(loss, n)
+        metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
+    else:
+        loss, metrics, grads = _grads(lm, state["params"], batch, shard)
+
+    if grad_transform is not None:
+        grads = grad_transform(grads)
+
+    params, opt_state, opt_metrics = opt.apply_updates(
+        tcfg.adamw, state["params"], state["opt"], grads)
+    metrics = dict(metrics, **opt_metrics, loss=loss)
+    return {"params": params, "opt": opt_state}, metrics
