@@ -87,6 +87,16 @@ Phases (any failure raises, so the script exits non-zero):
    recirculation; the four kernels of the chain must launch during the
    card run, with the same counts per Split, Merge and ``Chain.run`` call
    as phase 4.
+5a. Fabric: phase 4's ``pipes8`` through ``run_pipes(devices=n)`` for n
+   = 1, 2, 8 (``FABRIC_DEVICES``): 8 logical devices
+   (``distributed.force_host_devices``), the n shards of 8 / n pipes run
+   in turn on the one card; then phase 5's recirculation group at
+   ``devices=2`` through ``run_matrix``.  Each identical to its
+   one-device run and to the CPU run of phase 4 / 5 (counters, telemetry,
+   NF counters, occupancy, merged wire bytes), with the launches per
+   Split, Merge and ``Chain.run`` call of phase 4 (about n times the
+   one-device counts, as found); the wall, offered pkt/s and launches per
+   device count beside the card's name and power limit.
 6. Parked-KV serving at full width: ``repro_torch.launch.serve`` on
    Qwen2.5-3B (full config, 36 layers, weights from a seeded generator on
    the card), 4 requests of prompt 128 and gen 32, max_batch 4, 16-token
@@ -174,8 +184,23 @@ Phases (any failure raises, so the script exits non-zero):
     at the gradient hook (forward + backward, ``apply_updates``) and the
     peak device memory beside the card's name and power limit, and a
     ``train`` JSON line.
+11a. Model parallel, after the train phase has freed its memory: an NCCL
+    process group of world size 1 (it raises if the group does not
+    form) and a (1, 1) ("data", "model") mesh; the train phase's
+    full-width Qwen2.5-3B weights and 2 x 1024 batch laid out by
+    ``Rules.state_spec`` / ``batch_spec``, one AdamW step through
+    ``train_step(..., shard=rules.act_shard())`` with ``vocab_parallel``
+    off and on, each step's loss and grad norm within TRAIN_LOSS_ERR and
+    TRAIN_GNORM_REL of the train phase's first ``minimal`` step (the
+    exact differences and whether they are 0 printed); ``launch.train``
+    on the mesh against the run without one (reduced Qwen2.5-3B,
+    ``MP_TRAIN_STEPS`` steps, the train phase's bounds);
+    ``quantized_psum`` over the group on the card against the plain
+    requantization, bit for bit.  No kernel launches; a ``fabric`` /
+    ``model_parallel`` JSON line.
 12. The ``lm`` and ``kernels`` JSON lines (launches per path,
-    ``launches_stream``, ``launches_adversarial`` and, for
+    ``launches_stream``, ``launches_adversarial``, ``launches_fabric``
+    per device count and, for
     ``paged_attention``, ``launches_mixtral`` included), the card line,
     and the final ``ok`` line.
 
@@ -1407,8 +1432,9 @@ def check_launches(label, counts, calls, kernels) -> None:
 
 
 def engine(dev, packets: int = 16384):
-    """Phase 4.  Returns the launch counts of each run and the runs to
-    trace once every timed run is over."""
+    """Phase 4.  Returns the launch counts of each run, the runs to
+    trace once every timed run is over, and the ``pipes8`` inputs with its
+    card and CPU runs (for the fabric phase)."""
     from repro_torch.core.packet import map_fields, to_time_major
     from repro_torch.core.park import ParkConfig
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1434,7 +1460,7 @@ def engine(dev, packets: int = 16384):
           f"{steps} steps of {chunk} per pipe (capacity {st['pipe_capacity']}"
           f", overflow {st['overflow']}), window {window}, 20 rules -> NAT")
 
-    counts = {}
+    counts, kept = {}, {}
     runs = (
         ("pipes8", lambda d: run_pipes(cfg, chain, traces, window=window,
                                        device=d), True),
@@ -1468,11 +1494,14 @@ def engine(dev, packets: int = 16384):
               f"{gpu.counters}, launches {counts[label]} for {calls}; "
               "identical to the CPU run")
         print(depth_line(f"engine {label}", depths))
+        kept[label] = dict(card=gpu, cpu=cpu, wall=wall)
     head = map_fields(lambda n, a: a[:, :PROFILE_STEPS], traces)
     traced = [("pipes8", lambda d: run_pipes(cfg, chain, head, window=window,
                                              device=d),
                PROFILE_STEPS + window)]
-    return counts, traced
+    pipes8 = dict(cfg=cfg, chain=chain, traces=traces, window=window,
+                  **kept["pipes8"])
+    return counts, traced, pipes8
 
 
 # --------------------------------------------------------------------------
@@ -1488,8 +1517,9 @@ def same_point(label: str, gpu, cpu) -> None:
 
 
 def chain_phase(dev):
-    """Phase 5.  Returns the launch counts of the card run and the runs to
-    trace once every timed run is over."""
+    """Phase 5.  Returns the launch counts of the card run, the runs to
+    trace once every timed run is over, and the groups with their card
+    and CPU results (for the fabric phase)."""
     from repro_torch.core.packet import map_fields
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.scenarios import family, run_matrix, verify_oracle
@@ -1559,7 +1589,104 @@ def chain_phase(dev):
                            s1.park_config(), ch, head, window=s1.window,
                            device=d),
                        PROFILE_STEPS + s1.window + int(s1.recirc)))
-    return counts, traced
+    return counts, traced, dict(groups=groups, card=gpu, cpu=cpu,
+                                walls=gpu_walls)
+
+
+# --------------------------------------------------------------------------
+# the fabric: the pipe axis sharded over logical devices on the one card
+# --------------------------------------------------------------------------
+
+FABRIC_DEVICES = (1, 2, 8)
+
+
+def fabric_phase(dev, pipes8, chain_runs):
+    """The fabric phase: ``pipes8`` (phase 4's inputs) through
+    ``run_pipes(devices=n)`` for n in FABRIC_DEVICES, the n shards run in
+    turn on the one card (8 logical devices,
+    ``distributed.force_host_devices``), each identical to phase 4's CPU
+    run and to its own ``devices=1`` run; then the chain's recirculation
+    group at 2 devices through ``run_matrix``, identical to phase 5's card
+    and CPU runs.  Wall, offered pkt/s and launches per device count
+    (launches are expected near the shard count times one device's, as
+    found, not a target).  Returns (launch counts per device count, rows).
+    """
+    from repro_torch import distributed as D
+    from repro_torch.device import card_line
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.scenarios import run_matrix
+    from repro_torch.switchsim.engine import run_pipes
+
+    card = card_line(dev)
+    counts, rows = {}, {}
+    saved = D.forced_host_devices()
+    D.force_host_devices(max(FABRIC_DEVICES))
+    try:
+        one = None
+        for n in FABRIC_DEVICES:
+            sync(dev)
+            reset_launch_counts()
+            with path_calls() as calls:
+                t0 = time.perf_counter()
+                res = run_pipes(pipes8["cfg"], pipes8["chain"],
+                                pipes8["traces"], window=pipes8["window"],
+                                devices=n, device=dev)
+                sync(dev)
+                wall = time.perf_counter() - t0
+            counts[n] = launch_counts()
+            compare_runs(f"fabric devices={n}", res, pipes8["cpu"], True)
+            if one is None:
+                one = res
+            else:
+                compare_runs(f"fabric devices={n} vs 1", res, one, True)
+            check_launches(f"fabric devices={n}", counts[n], calls,
+                           DATAPLANE_KERNELS)
+            pps = res.telemetry.wire_pkts / wall
+            rows[f"pipes8_dev{n}"] = dict(
+                wall_s=wall, offered_pkts_per_s=pps,
+                launches={k: v for k, v in counts[n].items() if v})
+            print(f"fabric pipes8 devices={n} ({n} shard(s) of "
+                  f"{8 // n} pipe(s) in turn on {card}): wall {wall:.3f} s "
+                  f"({pps:.1f} offered pkt/s; phase 4's one-device run "
+                  f"{pipes8['wall']:.3f} s), launches "
+                  f"{rows[f'pipes8_dev{n}']['launches']} for {calls}; "
+                  "identical to devices=1 and to phase 4's CPU run")
+
+        members = [dataclasses.replace(m, devices=2)
+                   for m in chain_runs["groups"][1]]
+        sync(dev)
+        reset_launch_counts()
+        with path_calls() as calls:
+            t0 = time.perf_counter()
+            res = run_matrix(members, device=dev)
+            sync(dev)
+            wall = time.perf_counter() - t0
+        counts["chain_recirc_dev2"] = launch_counts()
+        if [r.group_size for r in res] != [len(members)] * len(members):
+            raise AssertionError("fabric: the chain's recirculation group "
+                                 "did not batch into one run")
+        for r in res:
+            name = r.spec.name
+            same_point(f"fabric chain {name} devices=2 vs card",
+                       r, chain_runs["card"][name])
+            same_point(f"fabric chain {name} devices=2 vs CPU",
+                       r, chain_runs["cpu"][name])
+        check_launches("fabric chain", counts["chain_recirc_dev2"], calls,
+                       CHAIN_KERNELS)
+        offered = sum(r.telemetry.wire_pkts for r in res)
+        rows["chain_recirc_dev2"] = dict(
+            wall_s=wall, offered_pkts_per_s=offered / wall,
+            one_device_wall_s=chain_runs["walls"][1])
+        print(f"fabric chain recirc group {[m.name for m in members]} "
+              f"devices=2 on {card}: wall {wall:.3f} s "
+              f"({offered / wall:.1f} offered pkt/s; phase 5's one-device "
+              f"run {chain_runs['walls'][1]:.3f} s), launches "
+              f"{ {k: v for k, v in counts['chain_recirc_dev2'].items() if v} }"
+              " ; identical to phase 5's card and CPU runs")
+    finally:
+        D.force_host_devices(saved)
+    rows["card"] = card
+    return counts, rows
 
 
 # --------------------------------------------------------------------------
@@ -2839,6 +2966,179 @@ def train_phase(dev):
     return rows
 
 
+# --------------------------------------------------------------------------
+# the model-parallel layer at world size 1 over NCCL
+# --------------------------------------------------------------------------
+
+MP_TRAIN_STEPS = 4
+
+
+def _full(x):
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def mesh_full_step(cfg, batch, dev, mesh, vocab_parallel: bool) -> dict:
+    """One AdamW step of the full config on the (1, 1) mesh: the train
+    phase's seeded weights drawn anew on the card, state and batch laid out
+    by ``Rules``, ``train_step`` with ``rules.act_shard()``.  The wall
+    includes DTensor's first-call sharding propagation."""
+    from repro_torch.distributed.sharding import Rules, distribute
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models.lm import LM
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import TrainConfig, train_step
+
+    rules = Rules(cfg, mesh)
+    params = init_params(cfg, dev)
+    state = {"params": params, "opt": init_opt_state(params)}
+    state = distribute(state, rules.state_spec(state), mesh)
+    batch = distribute(batch, rules.batch_spec(batch), mesh)
+    del params
+    tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-4, warmup_steps=1,
+                                         total_steps=100))
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, metrics = train_step(LM(cfg, vocab_parallel=vocab_parallel),
+                                tcfg, state, batch, shard=rules.act_shard())
+    loss = _full(metrics["loss"]).item()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    out = dict(vocab_parallel=vocab_parallel, wall_s=wall, loss=loss,
+               grad_norm=_full(metrics["grad_norm"]).item(),
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    del state, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_launch_train(dev, mesh) -> dict:
+    """``launch.train(run, mesh)`` on reduced Qwen2.5-3B against
+    ``launch.train(run)`` on the card, held by the train phase's bounds."""
+    from repro_torch.launch.train import RunConfig, train
+    from repro_torch.training.tree import tree_map
+
+    run = RunConfig(arch="qwen2.5-3b", steps=MP_TRAIN_STEPS, log_every=0,
+                    device=str(dev))
+    plain = train(run)
+    t0 = time.perf_counter()
+    meshed = train(run, mesh=mesh)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    meshed["state"] = {"params": tree_map(_full, meshed["state"]["params"])}
+    err, gnorm_rel, update_rel = train_gaps("qwen2.5-3b", plain, meshed)
+    print(f"model-parallel launch.train reduced qwen2.5-3b, "
+          f"{MP_TRAIN_STEPS} steps on the (1, 1) mesh: {wall:.3f} s; "
+          f"losses {[round(x, 6) for x in meshed['losses']]} vs without a "
+          f"mesh {[round(x, 6) for x in plain['losses']]}: max |dloss| "
+          f"{err:.9f} (bound {TRAIN_LOSS_ERR}), last grad norm relative "
+          f"{gnorm_rel:.9f} (bound {TRAIN_GNORM_REL}), update relative "
+          f"{update_rel:.9f} (bound {TRAIN_UPDATE_REL})")
+    if (err > TRAIN_LOSS_ERR or not gnorm_rel <= TRAIN_GNORM_REL
+            or not update_rel <= TRAIN_UPDATE_REL):
+        raise AssertionError(f"model-parallel launch.train: {err}, "
+                             f"{gnorm_rel}, {update_rel}")
+    return dict(wall_s=wall, max_abs_err=err, grad_norm_rel=gnorm_rel,
+                update_rel=update_rel, losses=meshed["losses"],
+                plain_losses=plain["losses"])
+
+
+def mesh_psum(dev) -> dict:
+    """``quantized_psum`` over the one-rank NCCL group (its int32
+    all-reduce on the card) against the same arithmetic without a
+    collective, bit for bit, and within max|x| / 127 + 1e-5 of x."""
+    from repro_torch.training.compression import _quant, quantized_psum
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn(4096, generator=gen, device=dev)
+    got = quantized_psum(x)
+    _, scale = _quant(x)
+    want = torch.clamp(torch.round(x / scale), -127, 127).to(
+        torch.int32).float() * scale
+    err = float((got - x).abs().max())
+    bound = float(x.abs().max()) / 127 + 1e-5
+    print(f"model-parallel quantized_psum over NCCL (1 rank, 4096 f32): "
+          f"identical to the plain requantization: "
+          f"{bool(torch.equal(got, want))}; max |sum - x| {err:.6g} "
+          f"(bound {bound:.6g})")
+    if not torch.equal(got, want) or not err <= bound:
+        raise AssertionError(f"model-parallel quantized_psum: {err}")
+    return dict(max_abs_err=err, bound=bound)
+
+
+def model_parallel_phase(dev, train_rows) -> dict:
+    """The model-parallel phase, at world size 1 (one card; NCCL takes no
+    two ranks on one card): an NCCL process group and a (1, 1)
+    ("data", "model") mesh; one AdamW step of Qwen2.5-3B at its published
+    widths on the train phase's weights and 2 x 1024 batch, state and
+    batch laid out by ``Rules``, once with ``vocab_parallel`` off and
+    once on, each step's loss and grad norm held to the train phase's
+    first ``minimal`` step within TRAIN_LOSS_ERR and TRAIN_GNORM_REL
+    (bit-identity expected at world size 1, and reported); then
+    ``launch.train`` on the mesh and ``quantized_psum``.  No kernel of the
+    port lies on the path: every launch count must stay 0."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.device import card_line
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training.data import DataConfig, SyntheticStream
+
+    card = card_line(dev)
+    want = train_rows["full"][0]["steps"][0]
+    cfg = configs.get("qwen2.5-3b")
+    b, s = FULL_TRAIN_SHAPE
+    rows = {"card": card}
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_host_mesh(model=1, data=1, device_type="cuda")
+            steps = []
+            for vp in (False, True):
+                batch = SyntheticStream(
+                    DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                               global_batch=b, seed=SEED),
+                    device=dev).batch_at(0)
+                r = mesh_full_step(cfg, batch, dev, mesh, vp)
+                dl = r["loss"] - want["loss"]
+                dg = r["grad_norm"] - want["grad_norm"]
+                r.update(loss_diff=dl, grad_norm_diff=dg,
+                         bit_identical=dl == 0.0 and dg == 0.0)
+                steps.append(r)
+                print(f"model-parallel full {cfg.name} (36 layers) on the "
+                      f"(1, 1) NCCL mesh, vocab_parallel {vp}, {b} x {s} "
+                      f"tokens, on {card}: step wall {r['wall_s']:.4f} s "
+                      f"(first call, sharding propagation included), loss "
+                      f"{r['loss']:.6f} (train phase {want['loss']:.6f}, "
+                      f"difference {dl!r}), grad_norm "
+                      f"{r['grad_norm']:.6f} (train phase "
+                      f"{want['grad_norm']:.6f}, difference {dg!r}); "
+                      f"bit-identical: {r['bit_identical']}; peak device "
+                      f"memory {r['peak_bytes']} B")
+                if (not abs(dl) <= TRAIN_LOSS_ERR
+                        or not abs(dg) <= TRAIN_GNORM_REL
+                        * abs(want["grad_norm"])):
+                    raise AssertionError(f"model-parallel step "
+                                         f"vocab_parallel={vp}: {r}")
+            rows["full"] = steps
+            rows["launch_train"] = mesh_launch_train(dev, mesh)
+            rows["quantized_psum"] = mesh_psum(dev)
+        finally:
+            dist.destroy_process_group()
+    counts = launch_counts()
+    print(f"model-parallel: kernel launches during the phase {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"model-parallel: kernels launched: {counts}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
@@ -2872,10 +3172,13 @@ def main() -> int:
     times["paged_attention"] = paged["engine"]
     stamp("phase 2 (kernels)")
     quickstart(dev)
-    counts, traced = engine(dev)
+    counts, traced, pipes8 = engine(dev)
     stamp("phases 3-4 (quickstart, engine)")
-    counts["chain"], chain_traced = chain_phase(dev)
+    counts["chain"], chain_traced, chain_runs = chain_phase(dev)
     stamp("phase 5 (chain)")
+    counts["fabric"], fabric_rows = fabric_phase(dev, pipes8, chain_runs)
+    del pipes8, chain_runs
+    stamp("fabric phase")
     counts["serve"], serve_traced = serve_phase(dev)
     stamp("phase 6 (serving)")
     # phase 7, after the timed runs of phases 2-6 (a torch.profiler session
@@ -2900,6 +3203,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_rows = train_phase(dev)
     stamp("train phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mp_rows = model_parallel_phase(dev, train_rows)
+    stamp("model-parallel phase")
 
     # ``launches`` is the count on the kernel's own main path: pipes8 for
     # the Split -> FW -> NAT -> Merge kernels (0 for crc16 and
@@ -2926,6 +3233,8 @@ def main() -> int:
             launches_serve=counts["serve"][name],
             launches_stream=counts["stream"][name],
             launches_adversarial=counts["adversarial"][name],
+            launches_fabric={n: c[name]
+                             for n, c in counts["fabric"].items()},
             max_abs_err=err[name], **{k: r[k] for k in keys},
             profiler_ms=durations.get(name))
         if name in big:  # past the one-block limits (phase 2)
@@ -2946,6 +3255,7 @@ def main() -> int:
         kernels.append(row)
     print(json.dumps({"lm": lm_rows}))
     print(json.dumps({"train": train_rows}))
+    print(json.dumps({"fabric": fabric_rows, "model_parallel": mp_rows}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

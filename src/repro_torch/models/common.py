@@ -115,8 +115,120 @@ NEG_INF = -1e30
 
 def f32_einsum(eq, a, b):
     """``einsum`` with f32 products and sums, as the reference's
-    ``preferred_element_type=float32``."""
-    return torch.einsum(eq, a.float(), b.float())
+    ``preferred_element_type=float32``.  Two DTensor operands sharded only
+    on indices the einsum keeps run on each rank's shards
+    (``_local_einsum``)."""
+    a, b = a.float(), b.float()
+    local = _local_einsum(eq, a, b)
+    return torch.einsum(eq, a, b) if local is None else local
+
+
+def _align(a, la, b, lb):
+    """``a`` and ``b`` resharded, mesh dim by mesh dim, so that each is
+    replicated or plainly sharded and, where both shard, on the same
+    index: a layout other than a plain shard is gathered; ``b`` is
+    gathered where the two shard different indices (the FSDP all-gather
+    of a weight); an operand replicated where the other shards an index
+    both carry takes its own slice (a local chunk, no collective)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def plain(p):
+        return p if type(p) is Shard or isinstance(p, Replicate) \
+            else Replicate()
+
+    want_a, want_b = [], []
+    for pa, pb in zip(a.placements, b.placements):
+        pa, pb = plain(pa), plain(pb)
+        if type(pa) is Shard and type(pb) is Shard \
+                and la[pa.dim] != lb[pb.dim]:
+            pb = Replicate()
+        if type(pa) is Shard and isinstance(pb, Replicate) \
+                and la[pa.dim] in lb:
+            pb = Shard(lb.index(la[pa.dim]))
+        elif type(pb) is Shard and isinstance(pa, Replicate) \
+                and lb[pb.dim] in la:
+            pa = Shard(la.index(lb[pb.dim]))
+        want_a.append(pa)
+        want_b.append(pb)
+    if want_a != list(a.placements):
+        a = a.redistribute(a.device_mesh, want_a)
+    if want_b != list(b.placements):
+        b = b.redistribute(b.device_mesh, want_b)
+    return a, b
+
+
+def _local_einsum(eq, a, b, local_fn=None):
+    """``eq`` of two DTensors computed shard by shard, or None where that
+    is not the einsum of the whole tensors.  After ``_align``, per mesh
+    dim, each operand is replicated or sharded on an index that the other
+    operand shards alike or lacks.  A kept index sharded so shards the
+    output; a contracted index sharded alike gives each rank a partial sum,
+    taken in f32 and all-reduced in f32 before the result returns to the
+    operands' dtype (one rounding of an f32 sum, as a one-device product
+    accumulates).  An operand replicated where the other shards an index
+    it lacks gets a ``Partial`` gradient on that mesh dim (each rank holds
+    its shard's share).  DTensor's own einsum and matmul take the same
+    layouts, but plan them for ~0.06-0.7 s a call on a 2-D mesh and sum
+    partial products in the operands' dtype; this plans nothing.
+    ``local_fn`` computes the shards' product (default ``torch.einsum``
+    of ``eq``).  Plain tensors return None at once."""
+    if type(a) is torch.Tensor or type(b) is torch.Tensor:
+        return None
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)
+            and a.device_mesh == b.device_mesh):
+        return None
+    ins, out = eq.split("->")
+    la, lb = ins.split(",")
+    a, b = _align(a, la, b, lb)
+    placements, grad_a, grad_b = [], [], []
+    for pa, pb in zip(a.placements, b.placements):
+        ia = la[pa.dim] if type(pa) is Shard else None
+        ib = lb[pb.dim] if type(pb) is Shard else None
+        if ((ia is None and not isinstance(pa, Replicate))
+                or (ib is None and not isinstance(pb, Replicate))):
+            return None
+        if ia is None and ib is None:
+            placements.append(Replicate())
+        elif ia == ib and ia not in out:
+            placements.append(Partial())
+        else:
+            idx = ia or ib
+            if idx not in out or (ia and ib and ia != ib) \
+                    or (ia is None and idx in la) \
+                    or (ib is None and idx in lb):
+                return None
+            placements.append(Shard(out.index(idx)))
+        grad_a.append(Partial() if ia is None and ib is not None else pa)
+        grad_b.append(Partial() if ib is None and ia is not None else pb)
+    sizes = dict(zip(la, a.shape)) | dict(zip(lb, b.shape))
+    shape = torch.Size(sizes[i] for i in out)
+    xa = a.to_local(grad_placements=grad_a)
+    xb = b.to_local(grad_placements=grad_b)
+    partial = any(isinstance(p, Partial) for p in placements)
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    if partial:
+        xa, xb = xa.float(), xb.float()
+    product = (local_fn(xa, xb) if local_fn is not None
+               else torch.einsum(eq, xa, xb))
+    res = DTensor.from_local(product, a.device_mesh,
+                             placements, run_check=False, shape=shape,
+                             stride=torch.empty(shape, device="meta")
+                             .stride())
+    if partial:
+        res = res.redistribute(a.device_mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in placements]).to(dtype)
+    return res
+
+
+def matmul(x, w):
+    """``x @ w`` for x (..., K) and w (K, N); two DTensors go shard by
+    shard (``_local_einsum``, each rank's ``@``) where their layouts
+    allow."""
+    lead = "abcdefgh"[:x.dim() - 1]
+    local = _local_einsum(f"{lead}y,yz->{lead}z", x, w, torch.matmul)
+    return x @ w if local is None else local
 
 
 def blockwise_attention(q, k, v, *, causal=True, window=None, q_offset=0,
@@ -219,7 +331,8 @@ def attn_init(gen, cfg: ModelConfig, device, lead: tuple[int, ...] = ()):
 
 def proj(x, w):
     """x (B, S, D) against w (D, ...) -> (B, S, ...)."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(x.shape[:-1] + w.shape[1:])
+    return matmul(x, w.reshape(w.shape[0], -1)).reshape(
+        x.shape[:-1] + w.shape[1:])
 
 
 def attn_qkv(p, x, cfg: ModelConfig, cos, sin):
@@ -245,7 +358,7 @@ def attn_qkv(p, x, cfg: ModelConfig, cos, sin):
 def attn_out(p, o):
     """o: (B, S, K, G, E) -> (B, S, D)."""
     b, s, k, g, e = o.shape
-    return o.reshape(b, s, k * g * e) @ p["wo"].reshape(k * g * e, -1)
+    return matmul(o.reshape(b, s, k * g * e), p["wo"].reshape(k * g * e, -1))
 
 
 # --------------------------------------------------------------------------
@@ -261,11 +374,11 @@ def mlp_init(gen, d_model, d_ff, device, lead: tuple[int, ...] = ()):
 
 
 def mlp_apply(p, x, act: str):
-    gate = x @ p["wg"]
-    up = x @ p["wi"]
+    gate = matmul(x, p["wg"])
+    up = matmul(x, p["wi"])
     # jax.nn.gelu defaults to the tanh approximation
     a = F.gelu(gate, approximate="tanh") if act == "gelu" else F.silu(gate)
-    return (a * up) @ p["wo"]
+    return matmul(a * up, p["wo"])
 
 
 # --------------------------------------------------------------------------
@@ -287,7 +400,7 @@ def embed_apply(p, tokens, cfg: ModelConfig, one_hot_matmul: bool = False):
     table = p["table"]
     if one_hot_matmul:
         oh = F.one_hot(tokens.long(), table.shape[0]).to(table.dtype)
-        x = oh @ table
+        x = matmul(oh, table)
     else:
         x = table[tokens.long()]
     if cfg.embed_scale:
@@ -301,7 +414,7 @@ def unembed_apply(p, x, cfg: ModelConfig, shard=None):
     """Logits; ``shard`` is the hook through which a multi-device layer
     keeps them vocab-sharded."""
     if cfg.tie_embeddings:
-        logits = x @ p["table"].T
+        logits = matmul(x, p["table"].T)
     else:
-        logits = x @ p["unembed"]
+        logits = matmul(x, p["unembed"])
     return logits if shard is None else shard(logits, "logits")

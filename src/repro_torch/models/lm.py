@@ -18,10 +18,29 @@ cache), ``decode`` (one token against the cache).  Caches keep the
 reference's tree: per segment, ``sub<i>`` leaves stacked on the layer
 axis, so ``convert.lm_params`` carries them across unchanged.  ``shard``
 is the hook through which a multi-device layer constrains layouts
-(identity here).  The reference's ``unroll``, ``decode_carry_cache`` and
+(``distributed.sharding.Rules.act_shard``; identity by default).  The
+reference's ``unroll``, ``decode_carry_cache`` and
 ``assume_uniform_decode`` only steer XLA's lowering and give the same
-math, so they have no counterpart; ``vocab_parallel`` belongs to the
-multi-device slice.
+math, so they have no counterpart.  ``vocab_parallel`` takes the token
+embeddings as a one-hot product with the table, keeps the logits
+vocab-sharded through the ``shard`` hook and picks each label's logit
+shard-locally (Megatron's vocab-parallel cross entropy).
+
+Parameters may be DTensors (``distributed.sharding.distribute``).  The
+model then makes plain tensors that meet them: the RoPE tables
+(``_angles`` of the ``arange`` positions of ``_positions``, ``_encode``
+and the decode positions), the masks, ``arange`` offsets and
+running-softmax accumulators of attention (``common.blockwise_attention``,
+``common.decode_attention``) and the ``arange`` of the
+ring write (``_ring_write``), the ``aux`` zeros of ``_run_segment`` and
+the vocabulary ids of the vocab-parallel gold pick.  ``forward_train``,
+``loss``, ``prefill`` and ``decode_step`` therefore run under
+``implicit_replication`` (``mesh_scope``) when the parameters are
+DTensors, which treats each such plain tensor as replicated;
+``train_step`` keeps that scope over the backward pass too.  The
+products (``common.matmul``, ``common.f32_einsum``) run shard by shard,
+with explicit redistributes only where a layout needs one
+(``common._align``, the f32 reduction of partial sums).
 
 ``remat_policy`` (``minimal | dots | off``) rematerializes each layer of
 the train-phase forward in the backward pass, as the reference's
@@ -33,6 +52,7 @@ same values.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Optional
@@ -147,9 +167,9 @@ def _prefill_cache_layout(arr, cache_len: int):
 def _ring_write(buf, new, lengths, shard: Shard):
     """A new buffer with the new token's row at slot (lengths-1) % ring."""
     idx = (lengths - 1) % buf.shape[1]
-    out = buf.clone()
-    out[torch.arange(new.shape[0], device=buf.device), idx] = \
-        new[:, 0].to(buf.dtype)
+    # out of place: a DTensor cache changes placement in the write
+    out = buf.index_put((torch.arange(new.shape[0], device=buf.device), idx),
+                        new[:, 0].to(buf.dtype))
     return shard(out, "cache_kv")
 
 
@@ -341,11 +361,29 @@ def _stack(trees: list) -> dict:
 # the model
 # --------------------------------------------------------------------------
 
+def mesh_scope(params):
+    """``implicit_replication`` when ``params`` holds DTensors (plain
+    tensors the model makes count as replicated), else nothing.  Entered
+    only where it is not on already: leaving ``implicit_replication``
+    turns it off, also inside an outer one.  Autograd's worker threads
+    inherit it, so a backward called in the scope runs in it."""
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.training.tree import leaves
+    if not is_dtensor(leaves(params)[0]):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    if DTensor._op_dispatcher._allow_implicit_replication:
+        return contextlib.nullcontext()
+    return implicit_replication()
+
+
 @dataclasses.dataclass(frozen=True)
 class LM:
     cfg: ModelConfig
     remat_policy: str = "minimal"   # minimal | dots | off
     attn_blocks: Optional[tuple] = None  # (q_block, kv_block) override
+    vocab_parallel: bool = False    # one-hot embed + vocab-sharded logits
 
     def __post_init__(self):
         if self.remat_policy not in REMAT_POLICIES:
@@ -435,11 +473,12 @@ class LM:
             return pos2d[None].expand(3, b, s)
         return pos2d
 
-    def _embed(self, params, batch, shard: Shard):
+    def _embed(self, params, batch, shard: Shard, one_hot: bool = False):
         """Token embeddings with the vision stub's rows in front (vlm), and
         the encoder output (audio)."""
         cfg = self.cfg
-        x = cm.embed_apply(params["embed"], batch["tokens"], cfg)
+        x = cm.embed_apply(params["embed"], batch["tokens"], cfg,
+                           one_hot_matmul=one_hot)
         if cfg.family == "vlm" and "vision_embeds" in batch:
             ve = batch["vision_embeds"].to(x.dtype)    # (B, NV, D) stub
             x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
@@ -467,34 +506,52 @@ class LM:
         positions, vision_embeds, enc_frames.  Returns (logits (B,S,V),
         aux summed over the MoE layers)."""
         cfg = self.cfg
-        b, s = batch["tokens"].shape
-        cos, sin = self._angles(self._positions(batch, b, s,
-                                                batch["tokens"].device))
-        x, enc_out = self._embed(params, batch, shard)
-        ctx = self._ctx(cos=cos, sin=sin, phase="train", shard=shard,
-                        enc_out=enc_out)
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for seg in segments_for(cfg):
-            x, _, aux = self._run_segment(seg, params[seg.name], x, ctx)
-            aux_total = aux_total + aux
-        x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        return cm.unembed_apply(params["embed"], x, cfg), aux_total
+        with mesh_scope(params):
+            b, s = batch["tokens"].shape
+            cos, sin = self._angles(self._positions(batch, b, s,
+                                                    batch["tokens"].device))
+            x, enc_out = self._embed(params, batch, shard,
+                                     one_hot=self.vocab_parallel)
+            ctx = self._ctx(cos=cos, sin=sin, phase="train", shard=shard,
+                            enc_out=enc_out)
+            aux_total = torch.zeros((), dtype=torch.float32,
+                                    device=x.device)
+            for seg in segments_for(cfg):
+                x, _, aux = self._run_segment(seg, params[seg.name], x, ctx)
+                aux_total = aux_total + aux
+            x = cm.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+            return cm.unembed_apply(
+                params["embed"], x, cfg,
+                shard=shard if self.vocab_parallel else None), aux_total
 
     def loss(self, params, batch, shard: Shard = _identity,
              aux_weight: float = 0.01):
         """Mean next-token cross entropy over labels >= 0, plus
         ``aux_weight`` times the MoE balance loss.  Returns (loss, {"ce",
         "aux"})."""
-        logits, aux = self.forward_train(params, batch, shard)
-        labels = batch["labels"]
-        mask = labels >= 0
-        lab = torch.clamp(labels, min=0).long()
-        logits = logits.float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lab[..., None])[..., 0]
-        nll = torch.where(mask, lse - gold, 0.0)
-        ce = nll.sum() / torch.clamp(mask.sum(), min=1)
-        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+        with mesh_scope(params):
+            logits, aux = self.forward_train(params, batch, shard)
+            labels = batch["labels"]
+            mask = labels >= 0
+            lab = torch.clamp(labels, min=0).long()
+            logits = logits.float()
+            # (B, S, 1) throughout: on vocab-sharded DTensor logits the
+            # gather gives a masked partial that reduces in the
+            # subtraction, over the shape it was made with
+            lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+            if self.vocab_parallel:
+                # shard-local gold pick: reduces over the vocab-sharded
+                # axis instead of gathering logits (Megatron
+                # vocab-parallel CE)
+                vid = torch.arange(logits.shape[-1],
+                                   device=logits.device)[None, None, :]
+                gold = torch.sum(torch.where(vid == lab[..., None], logits,
+                                             0.0), -1, keepdim=True)
+            else:
+                gold = torch.gather(logits, -1, lab[..., None])
+            nll = torch.where(mask[..., None], lse - gold, 0.0)
+            ce = nll.sum() / torch.clamp(mask.sum(), min=1)
+            return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     # -- cache construction ---------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, enc_len: int = 0,
@@ -553,6 +610,12 @@ class LM:
                     shard: Shard = _identity, cache_len: int = 0):
         """tokens: (B,) new token ids; positions: (B,) their indices.
         Returns (logits (B, V), new_cache); ``cache`` is left as it was."""
+        with mesh_scope(params):
+            return self._decode_step(params, cache, tokens, positions,
+                                     shard, cache_len)
+
+    def _decode_step(self, params, cache, tokens, positions, shard: Shard,
+                     cache_len: int):
         cfg = self.cfg
         cache_len = cache_len or self._cache_len_from(cache)
         cos, sin = self._angles(self._decode_positions(positions))
@@ -582,6 +645,10 @@ class LM:
                 shard: Shard = _identity):
         """Full-sequence forward that also returns the populated cache.
         Returns (last-token logits (B, V), cache)."""
+        with mesh_scope(params):
+            return self._prefill(params, batch, cache_len, shard)
+
+    def _prefill(self, params, batch, cache_len: int, shard: Shard):
         cfg = self.cfg
         b, s = batch["tokens"].shape
         cos, sin = self._angles(self._positions(batch, b, s,

@@ -52,7 +52,7 @@ def pipeline_grid(pipes_list, *, packets, chunk, window, pmax, capacity,
     ``backends`` adds the dataplane-backend axis (the port's ``ref |
     cuda | auto``; the reference's default is its ``ref``, the port's
     ``auto`` runs the kernels on the card) and ``devices`` the
-    fabric-sharding axis (only 1 until the fabric slice).  Single-valued
+    fabric-sharding axis (``switchsim.fabric``).  Single-valued
     axes keep the plain point names (``pipes2``); multi-valued axes
     separate the points by name (``pipes2_cuda``, ``pipes2_dev4``)."""
     base = ScenarioSpec(

@@ -131,17 +131,21 @@ def run_prepared(prepared: list[Prepared], time_runs: bool = False,
     results: list = [None] * len(prepared)
     for key, members in groups.items():
         (cfg, chain, window, _chunk, _steps, _pmax, explicit_drops,
-         _lane, backend) = key
+         _lane, backend, devices) = key
         stacked = map_fields(lambda n, *xs: torch.cat(xs, dim=0),
                              *(prepared[i].traces for i in members))
         # fault masks ride the same stacked pipe axis as the traces
         stacked_faults = F.concat([prepared[i].faults for i in members])
 
+        # ``devices`` shards the group's *concatenated* pipe axis
+        # (switchsim.fabric): the group stays one run whose shards may
+        # straddle scenario boundaries; the per-scenario regrouping below
+        # reads across shard boundaries
         def run():
             return E.run_pipes(cfg, chain, stacked, window=window,
                                explicit_drops=explicit_drops,
                                backend=backend, faults=stacked_faults,
-                               device=dev)
+                               devices=devices, device=dev)
 
         res = run()
         group_wall = 0.0
@@ -203,12 +207,25 @@ def verify_oracle(result: ScenarioResult, faults=True,
     """Assert engine ≡ host loop (counters, telemetry, NF counters) for one
     point, re-running ``simulate_loop`` pipe by pipe on ``device`` with the
     point's backend.  ``faults=False`` re-runs the loop healthy.  Raises
-    ``OracleMismatch`` on any difference."""
+    ``OracleMismatch`` on any difference.
+
+    **Per-shard semantics** (``spec.devices`` > 1, DESIGN.md §12): the
+    fabric shards the pipe axis contiguously, so the per-pipe check below
+    *is* the per-shard check — each device's pipe slice is verified
+    independently against its own host-loop re-run, with no cross-shard
+    state to reconcile.  Mismatch messages name the shard the diverging
+    pipe ran on, so multi-device failures localize to a device."""
     spec = result.spec
     p = result.prepared if result.prepared is not None else prepare(spec)
     cfg = spec.park_config()
+    # contiguous shard of each pipe index, for mismatch localization
+    # (devices that didn't divide the pipe axis ran replicated on shard 0)
+    per_shard = (spec.pipes // spec.devices
+                 if spec.pipes % spec.devices == 0 else spec.pipes)
     for pipe in range(spec.pipes):
-        where = f"{spec.name} pipe {pipe}"
+        shard = pipe // max(per_shard, 1)
+        where = (f"{spec.name} pipe {pipe} (shard {shard}/{spec.devices})"
+                 if spec.devices > 1 else f"{spec.name} pipe {pipe}")
         flat = from_time_major(map_fields(lambda n, a: a[pipe], p.traces))
         loop = simulate_loop(cfg, p.chain, flat, window=spec.window,
                              chunk=spec.chunk,

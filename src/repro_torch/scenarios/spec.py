@@ -18,8 +18,7 @@ batch into one ``run_pipes`` call.
 
 Traffic is drawn from ``torch.Generator``s on the CPU, so one seed gives
 the same packets whatever device the run then uses (and not the
-reference's ``jax.random`` packets).  ``devices > 1`` arrives with the
-fabric slice and raises here.
+reference's ``jax.random`` packets).
 """
 from __future__ import annotations
 
@@ -60,7 +59,12 @@ class ScenarioSpec:
     ``backend`` is one of the port's backends (``ref | cuda | auto``).
     ``fault`` injects one fault event (``switchsim.faults.FaultSpec``);
     ``nat_capacity`` overrides the NAT table size (0 = the NF's default).
-    ``devices`` must be 1: sharding over several cards is a later slice.
+    ``devices`` shards the point's flat pipe axis over that many logical
+    devices (``switchsim.fabric``, DESIGN.md §12) — a grid axis and part
+    of the compile key, since a sharded group must stay one run whose
+    concatenated pipe axis shards as a whole.  Results are device-count
+    invariant (bit-identical counters/telemetry/occupancy), so scaling
+    sweeps vary only the wall clock.
     """
 
     name: str
@@ -94,10 +98,6 @@ class ScenarioSpec:
             raise ValueError(f"{self.name}: pipes must be >= 1")
         if self.devices < 1:
             raise ValueError(f"{self.name}: devices must be >= 1")
-        if self.devices > 1:
-            raise NotImplementedError(
-                f"{self.name}: devices={self.devices}: sharding pipes over "
-                f"several cards arrives with the fabric slice")
         resolve_workload(self.workload)  # validates the name eagerly
         if self.flows and self.workload[0] in ("adversarial", "churn"):
             raise ValueError(
@@ -263,8 +263,10 @@ def compile_key(spec: ScenarioSpec, chain: Chain, steps: int):
     geometry (``steps`` from the point's steered traces) and the same
     backend selection.  Points that differ only in workload, seed or flow
     structure share a key; shape-changing axes run as separate calls.
+    ``devices`` is part of the key: a group spanning devices stays one
+    run whose concatenated pipe axis shards as a whole.
     """
     cfg = spec.park_config()
     lane = recirc_slots(cfg, spec.chunk)
     return (cfg, chain, spec.window, spec.chunk, steps, spec.pmax,
-            spec.explicit_drops, lane, spec.backend_config())
+            spec.explicit_drops, lane, spec.backend_config(), spec.devices)

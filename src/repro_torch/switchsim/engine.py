@@ -28,6 +28,7 @@ and to the reference engine on the same numpy inputs.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -43,6 +44,7 @@ from repro_torch.core.park import (ParkConfig, ParkState, init_state,
                                    merge_fn, occupancy, recirc_fn, split_fn)
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.nf.chain import Chain, to_explicit_drops
+from repro_torch.switchsim import fabric
 from repro_torch.switchsim import faults as F
 from repro_torch.switchsim.results import EngineResult, PipesResult
 from repro_torch.switchsim.telemetry import (TEL_FIELDS, LinkTelemetry,
@@ -189,39 +191,79 @@ def _stack_time(batches: list[PacketBatch]) -> PacketBatch:
                                          dim=1) for n in FIELDS})
 
 
-def _execute(cfg, chain, traces: PacketBatch, window, explicit_drops,
-             backend, collect_sent, fa: F.FaultArrays):
-    """Run the step body over a (P, T, chunk, ...) trace plus the drain
-    padding.  Returns (state, chain states, merged, sent, host ys)."""
-    dev = traces.device
-    pipes, steps, chunk = traces.src_ip.shape
-    lane = recirc_slots(cfg, chunk)
-    pad = window + (1 if lane else 0)
-    ones = np.ones((pipes, pad), bool)
-    s_up = torch.from_numpy(np.concatenate([fa.server_up, ones], 1)).to(dev)
-    l_up = torch.from_numpy(np.concatenate([fa.lb_up, ones], 1)).to(dev)
-    drain = torch.from_numpy(np.asarray(fa.drain, bool)).to(dev)
-    dead_in = dead_batch(chunk, cfg.pmax, dev, (pipes,))
-    step = scan_step(cfg, chain, window, explicit_drops, backend,
-                     collect_sent, lane)
-    carry = init_carry(cfg, chain, pipes, chunk, window, lane, dev)
-    merged, sent = [], []
-    tallies: dict[str, list] = {k: [] for k in TEL_FIELDS + ("occ",)}
-    for t in range(steps + pad):
-        cin = (map_fields(lambda n, a: a[:, t], traces) if t < steps
-               else dead_in)
-        carry, ys = step(carry, (cin, s_up[:, t], l_up[:, t]), drain)
-        if t >= window:
-            merged.append(ys["merged"])
-        if collect_sent and t < steps + pad - window:
-            sent.append(ys["sent"])
-        for k in tallies:
-            tallies[k].append(ys[k])
-    host = {k: torch.stack(v, dim=1).cpu().numpy().astype(np.int64)
-            for k, v in tallies.items()}
-    state, cstates = carry[0], carry[1]
-    return (state, cstates, _stack_time(merged),
-            _stack_time(sent) if collect_sent else None, host)
+def _on(dev: torch.device):
+    """Make ``dev`` the current card while a shard's step is issued (the
+    kernels launch on the current device's stream)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else \
+        contextlib.nullcontext()
+
+
+class _ShardRun:
+    """One shard's run in progress: its inputs on its device, the step
+    body, the carry, and what the steps have produced so far."""
+
+    def __init__(self, cfg, chain, traces: PacketBatch, fa: F.FaultArrays,
+                 window, explicit_drops, backend, collect_sent):
+        self.dev = dev = traces.device
+        self.traces = traces
+        pipes, self.steps, chunk = traces.src_ip.shape
+        lane = recirc_slots(cfg, chunk)
+        self.pad = window + (1 if lane else 0)
+        ones = np.ones((pipes, self.pad), bool)
+        with _on(dev):
+            self.s_up = torch.from_numpy(
+                np.concatenate([fa.server_up, ones], 1)).to(dev)
+            self.l_up = torch.from_numpy(
+                np.concatenate([fa.lb_up, ones], 1)).to(dev)
+            self.drain = torch.from_numpy(np.asarray(fa.drain, bool)).to(dev)
+            self.dead_in = dead_batch(chunk, cfg.pmax, dev, (pipes,))
+            self.carry = init_carry(cfg, chain, pipes, chunk, window, lane,
+                                    dev)
+        self.step_fn = scan_step(cfg, chain, window, explicit_drops, backend,
+                                 collect_sent, lane)
+        self.window, self.collect_sent = window, collect_sent
+        self.merged, self.sent = [], []
+        self.tallies: dict[str, list] = {k: [] for k in TEL_FIELDS + ("occ",)}
+
+    def step(self, t: int) -> None:
+        with _on(self.dev):
+            cin = (map_fields(lambda n, a: a[:, t], self.traces)
+                   if t < self.steps else self.dead_in)
+            self.carry, ys = self.step_fn(
+                self.carry, (cin, self.s_up[:, t], self.l_up[:, t]),
+                self.drain)
+        if t >= self.window:
+            self.merged.append(ys["merged"])
+        if self.collect_sent and t < self.steps + self.pad - self.window:
+            self.sent.append(ys["sent"])
+        for k in self.tallies:
+            self.tallies[k].append(ys[k])
+
+    def finish(self, chain):
+        """(state, per-pipe NF counters, merged, sent, host ys)."""
+        host = {k: torch.stack(v, dim=1).cpu().numpy().astype(np.int64)
+                for k, v in self.tallies.items()}
+        state, cstates = self.carry[0], self.carry[1]
+        return (state,
+                _per_pipe_nf_counters(chain, cstates, state.counters.shape[0]),
+                _stack_time(self.merged),
+                _stack_time(self.sent) if self.collect_sent else None, host)
+
+
+def _execute(cfg, chain, shards, window, explicit_drops, backend,
+             collect_sent):
+    """Run the step body over each shard's (P_i, T, chunk, ...) trace plus
+    the drain padding.  ``shards`` is a list of (traces on the shard's
+    device, its fault masks).  The shards run in lockstep: step t of every
+    shard is issued before step t + 1 of any, and nothing waits for a
+    device until the tallies come to the host at the end.  Returns per
+    shard (state, per-pipe NF counters, merged, sent, host ys)."""
+    runs = [_ShardRun(cfg, chain, traces, fa, window, explicit_drops,
+                      backend, collect_sent) for traces, fa in shards]
+    for t in range(runs[0].steps + runs[0].pad):
+        for run in runs:
+            run.step(t)
+    return [run.finish(chain) for run in runs]
 
 
 def _per_pipe_telemetry(ys: dict) -> list[LinkTelemetry]:
@@ -271,21 +313,26 @@ def run_pipes(cfg: ParkConfig, chain: Chain, traces, window: int = 1,
     sources materialize to.  Each pipe owns a fresh ParkState and NF-chain
     state (the paper's per-port pipes share nothing, §6.3.2); all pipes
     advance together along the leading pipe axis.  ``faults`` is a
-    ``FaultSpec`` or ``FaultArrays``.  Only ``devices=1`` is ported:
-    sharding pipes over several cards is later work.
+    ``FaultSpec`` or ``FaultArrays``.
+
+    ``devices`` > 1 shards the pipe axis over that many logical devices
+    via ``switchsim.fabric`` (DESIGN.md §12).  Results are bit-identical
+    for any device count (shard-count invariance); the request falls back
+    to 1 with a warning when the pipe count does not divide it or fewer
+    logical devices are visible.
     """
-    if devices != 1:
-        raise NotImplementedError(
-            "run_pipes shards over one device only; the multi-device "
-            "fabric is not ported yet")
     backend = as_config(backend)
     dev = resolve_device(device)
-    traces = _as_pipe_traces(traces).to(dev)
+    traces = _as_pipe_traces(traces)
     pipes, steps, _ = traces.src_ip.shape
     fa = F.resolve(faults, pipes=pipes, steps=steps)
-    state, cstates, merged, sent, ys = _execute(
-        cfg, chain, traces, window, explicit_drops, backend, collect_sent,
-        fa)
+    if devices != 1:
+        devices = fabric.resolve_devices(pipes, devices, dev)
+    shards = fabric.shard_over_switch(traces, fa, devices, dev)
+    state, per_nf, merged, sent, ys = (
+        fabric.gather(list(part), dev) for part in zip(*_execute(
+            cfg, chain, shards, window, explicit_drops, backend,
+            collect_sent)))
     per_tel = _per_pipe_telemetry(ys)
     tel = sum_telemetry(per_tel)
     occ_pp = ys["occ"]
@@ -294,7 +341,6 @@ def run_pipes(cfg: ParkConfig, chain: Chain, traces, window: int = 1,
     agg = dict(zip(C.NAMES, (int(v) for v in ctr.sum(axis=0))))
     per_pipe = [dict(zip(C.NAMES, (int(v) for v in ctr[p])))
                 for p in range(pipes)]
-    per_nf = _per_pipe_nf_counters(chain, cstates, pipes)
     nf_agg = {k: sum(d[k] for d in per_nf) for k in (per_nf[0] if per_nf
                                                       else {})}
     return PipesResult(

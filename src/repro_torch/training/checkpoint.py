@@ -9,15 +9,19 @@
     latest checkpoint.
   * ``restore`` takes structure, dtypes and shapes from a template (meta
     tensors do: ``LM.init_params(device="meta")``) and places the leaves
-    on ``device``.
+    on ``device`` or, given a mesh and partition specs (the reference's
+    ``shardings``), lays each out as a DTensor on that mesh — which may
+    differ from the saving run's (elastic rescale: save under a (2, 2)
+    mesh, restore under (4, 1)).
+  * A tree of DTensors is saved whole: every rank joins the gather of
+    each leaf (``full_tensor``), only ``process_index`` 0 writes, so the
+    layout on disk is the reference's whatever the mesh, and a blocking
+    save returns on every rank once the checkpoint is on disk.
   * ``latest_step`` + ``launch/train.py`` give resume after a failure.
   * A non-blocking save copies every leaf to the host before it returns
     and writes from a thread, so the train loop only waits for the
     previous save; the optimizer then updates the live tensors in place
     without touching what is being written.
-
-The reference's ``shardings`` (placement on a mesh) belong to the
-multi-device layer.
 """
 from __future__ import annotations
 
@@ -31,12 +35,16 @@ import numpy as np
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed.sharding import distribute, is_dtensor
 from repro_torch.training.tree import items, unflatten
 
 
 def _host_array(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t`` that later in-place updates of ``t`` leave
-    alone; bf16 as its uint16 bits."""
+    """A host copy of ``t`` (of the whole tensor for a DTensor: a
+    collective every rank joins) that later in-place updates of ``t``
+    leave alone; bf16 as its uint16 bits."""
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -48,8 +56,10 @@ def save(ckpt_dir: str, step: int, tree, process_index: int = 0,
     """Write ``tree`` under ckpt_dir/step_<N>/ atomically."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + f".tmp{process_index}"
+    leaves = items(tree)
+    sharded = any(is_dtensor(leaf) for _, leaf in leaves)
     host_data = {path.replace("/", "~"): _host_array(leaf)
-                 for path, leaf in items(tree)}
+                 for path, leaf in leaves}
 
     def _write():
         os.makedirs(tmp, exist_ok=True)
@@ -60,8 +70,15 @@ def save(ckpt_dir: str, step: int, tree, process_index: int = 0,
             shutil.rmtree(final)
         os.replace(tmp, final)
 
+    writes = not sharded or process_index == 0
     if blocking:
-        _write()
+        if writes:
+            _write()
+        if sharded:
+            import torch.distributed as dist
+            dist.barrier()
+        return None
+    if not writes:
         return None
     th = threading.Thread(target=_write, daemon=True)
     th.start()
@@ -78,9 +95,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, step: int, template,
-            device: str | torch.device = DEFAULT_DEVICE):
+            device: str | torch.device = DEFAULT_DEVICE, mesh=None,
+            specs=None):
     """Load step ``step`` into a tree of ``template``'s structure, dtypes
-    and shapes, on ``device``."""
+    and shapes, on ``device``; with a ``mesh``, each leaf is laid out on it
+    under ``specs`` (a tree of partition specs, e.g.
+    ``Rules(cfg, mesh).state_spec(template)``; every rank calls it)."""
     dev = resolve_device(device)
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     flat: dict[str, np.ndarray] = {}
@@ -101,5 +121,8 @@ def restore(ckpt_dir: str, step: int, template,
                              f"{tuple(t.shape)}, template {tuple(tmpl.shape)}")
         return t.to(dev)
 
-    return unflatten(template, [place(t, path)
+    tree = unflatten(template, [place(t, path)
                                 for path, t in items(template)])
+    if mesh is None:
+        return tree
+    return distribute(tree, specs, mesh)

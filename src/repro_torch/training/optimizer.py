@@ -12,6 +12,14 @@ leaf under ``torch.no_grad()``, and a leaf past ``CHUNK`` elements a slice
 of its leading (layer) axis at a time: a functional update of Qwen2.5-3B
 would hold old and new moments side by side (2 x 24.7 GB) beside f32
 temporaries of its largest leaf, more than one 80 GB card holds.
+
+Leaves may be DTensors (``launch/train.py`` under a mesh).  Each gradient
+is first laid out as its parameter (a ``Partial`` gradient reduces), the
+update then runs on every rank's local shards, which parameter, moments
+and gradient share, so the in-place slices of the layer axis stay local
+(every rule replicates that axis); ``global_norm`` sums each leaf's local
+squares and all-reduces over the mesh dims that shard it, a replicated
+scalar on every rank.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.training.tree import leaves, tree_map
 
 # elements of a leaf updated at once: a larger leaf goes a slice of its
@@ -83,11 +92,36 @@ def _chunks(x: torch.Tensor) -> list[torch.Tensor]:
     return [x[i:i + rows] for i in range(0, x.shape[0], rows)]
 
 
+def _local(x):
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _sum_squares(x):
+    """f32 sum of squares of ``x``'s elements; for a DTensor, each
+    rank's local sum all-reduced over the mesh dims that shard ``x``."""
+    total = sum(torch.sum(torch.square(c.float()))
+                for c in _chunks(_local(x)))
+    if not is_dtensor(x):
+        return total
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    return DTensor.from_local(
+        total, x.device_mesh,
+        [Partial() if p.is_shard() else Replicate() for p in x.placements],
+        run_check=False).full_tensor()
+
+
 def global_norm(tree):
     """sqrt of the f32 sum of squares over the leaves, summed leaf by leaf
     in the reference's order."""
-    return torch.sqrt(sum(sum(torch.sum(torch.square(c.float()))
-                              for c in _chunks(x)) for x in leaves(tree)))
+    return torch.sqrt(sum(_sum_squares(x) for x in leaves(tree)))
+
+
+def _as_param(g, p):
+    """``g`` laid out as ``p`` (a DTensor gradient may come back
+    ``Partial`` or otherwise placed)."""
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @torch.no_grad()
@@ -96,7 +130,8 @@ def apply_updates(cfg: AdamWConfig, params, opt_state, grads):
     reference does; ``params`` and the moments in ``opt_state`` are updated
     in place (the returned dicts hold the same tensors), so a caller that
     needs the old values copies them first."""
-    step = opt_state["step"] + 1
+    grads = tree_map(_as_param, grads, params)
+    step = _local(opt_state["step"]) + 1
     lr = schedule(cfg, step)
     gnorm = global_norm(grads)
     scale = torch.clamp(
@@ -119,8 +154,14 @@ def apply_updates(cfg: AdamWConfig, params, opt_state, grads):
 
     for p, m, v, g in zip(leaves(params), leaves(opt_state["m"]),
                           leaves(opt_state["v"]), leaves(grads)):
-        for parts in zip(*map(_chunks, (p, m, v, g))):
+        local = [_local(x) for x in (p, m, v, g)]
+        for parts in zip(*map(_chunks, local)):
             upd(*parts, decay=p.dim() >= 2)
+    if is_dtensor(opt_state["step"]):
+        from torch.distributed.tensor import DTensor
+        old = opt_state["step"]
+        step = DTensor.from_local(step, old.device_mesh, old.placements,
+                                  run_check=False)
     metrics = {"lr": lr, "grad_norm": gnorm}
     return params, {"m": opt_state["m"], "v": opt_state["v"],
                     "step": step}, metrics

@@ -9,7 +9,10 @@ reference's ``TrainConfig.compress_grads`` is read by nothing.
 Gradients come from ``torch.autograd.grad`` over the parameter leaves, in
 the parameters' dtype (bf16 gradients for bf16 parameters, as the
 reference's).  AdamW updates the state's tensors in place
-(``optimizer.apply_updates``).
+(``optimizer.apply_updates``).  Under a mesh the state and batch are
+DTensors (``launch/train.py``), ``shard`` is ``Rules.act_shard()`` and
+every rank runs the same step; gradient accumulation over microbatches
+takes plain tensors only.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models.lm import LM, Shard, _identity
+from repro_torch.models.lm import LM, Shard, _identity, mesh_scope
 from repro_torch.training import optimizer as opt
 from repro_torch.training.tree import leaves, tree_map, unflatten
 
@@ -38,10 +41,14 @@ def init_train_state(lm: LM, generator: torch.Generator | None = None,
 
 
 def _grads(lm: LM, params, batch, shard: Shard):
-    """(loss, metrics, gradients) of ``lm.loss`` at ``params``."""
+    """(loss, metrics, gradients) of ``lm.loss`` at ``params``.  With
+    DTensor parameters the backward runs in the model's mesh scope too:
+    it meets the plain tensors the forward saved."""
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    loss, metrics = lm.loss(live, batch, shard)
-    grads = torch.autograd.grad(loss, leaves(live), materialize_grads=True)
+    with mesh_scope(params):
+        loss, metrics = lm.loss(live, batch, shard)
+        grads = torch.autograd.grad(loss, leaves(live),
+                                    materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             unflatten(params, grads))
 

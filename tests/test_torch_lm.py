@@ -187,6 +187,32 @@ def test_loss_matches_reference(runs):
         assert float(p16["aux"]) == float(p32["aux"]) == 0.0
 
 
+def test_loss_gold_pick_is_the_gather_bit_for_bit(runs):
+    """The loss keeps its gold pick (B, S, 1) wide, so that vocab-sharded
+    DTensor logits reduce over the shape the gather made; on plain tensors
+    it gives the ``gather(...)[..., 0]`` loss bit for bit.  The
+    vocab-parallel pick (one-hot embedding, shard-local gold) gives the
+    same cross entropy."""
+    tcfg = reduced(configs.get(runs["name"]))
+    batch = batch_for(jreduced(jconfigs.get(runs["name"])))
+    labels = torch.from_numpy(batch["labels"])
+    mask = labels >= 0
+    lab = torch.clamp(labels, min=0).long()
+    for tag in ("16", "32"):
+        p = runs["port" + tag]
+        logits = p["logits"].float()
+        gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+        nll = torch.where(mask, torch.logsumexp(logits, dim=-1) - gold, 0.0)
+        ce = nll.sum() / torch.clamp(mask.sum(), min=1)
+        assert torch.equal(ce, p["ce"]), (tag, ce, p["ce"])
+    tp = convert.lm_params(jax.tree.map(np.asarray, runs["params"]), "cpu")
+    tb = {k: torch.from_numpy(v).to(torch.bfloat16) if v.dtype == np.float32
+          else torch.from_numpy(v) for k, v in batch.items()}
+    _, parts = LM(tcfg, vocab_parallel=True).loss(tp, tb)
+    assert float(parts["ce"]) == pytest.approx(float(runs["port16"]["ce"]),
+                                               rel=1e-6)
+
+
 def test_prefill_logits_and_cache_match_reference(runs):
     r16, r32, p16, p32 = (runs[k] for k in ("ref16", "ref32", "port16",
                                             "port32"))

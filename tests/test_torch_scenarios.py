@@ -101,9 +101,8 @@ def test_spec_checks_raise_where_the_reference_does(case):
     dict(devices=2),
 ], ids=["devices"])
 def test_later_slices_raise(kw):
-    _spec(JS, **kw)  # the reference takes them
-    with pytest.raises(NotImplementedError, match="slice"):
-        _spec(TS, **kw)
+    # the reference takes them, and since the fabric slice so does the port
+    assert _fields(_spec(TS, **kw)) == _fields(_spec(JS, **kw))
 
 
 @pytest.mark.parametrize("kw", [
