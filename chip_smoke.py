@@ -198,6 +198,20 @@ Phases (any failure raises, so the script exits non-zero):
     ``quantized_psum`` over the group on the card against the plain
     requantization, bit for bit.  No kernel launches; a ``fabric`` /
     ``model_parallel`` JSON line.
+11b. The dry run (``launch/dryrun.py``), in a child process of its own
+    (the parent holds an NCCL group; ``--dryrun-child OUT.json`` runs it
+    alone): Qwen2.5-3B at its published widths, 4 of its 36 layers, one
+    ``train_step`` on 2 x 1024 tokens over a one-rank NCCL (1, 1) mesh
+    under ``FlopCounterMode``, against the dry run's trace of the same
+    step on a (1, 1) fake mesh of device type ``cuda``: FLOPs equal, the
+    predicted peak within 10 % of ``max_memory_allocated``; then
+    ``run_cell`` on Qwen2.5-3B decode_32k over the 16 x 16 mesh and on
+    Mixtral-8x7B decode_32k over 2 x 16 x 16 (full width and depth,
+    fake process group, fake tensors): each ``ok``, its trace seconds and
+    fit printed, no kernel launched, device memory unchanged; the phase
+    within 120 s.  Then the example twins ``examples/torch_quickstart.py``
+    and ``torch_parked_decode.py`` on the card, each in a process that
+    must exit 0.  A ``dryrun`` JSON line.
 12. The ``lm`` and ``kernels`` JSON lines (launches per path,
     ``launches_stream``, ``launches_adversarial``, ``launches_fabric``
     per device count and, for
@@ -3139,10 +3153,206 @@ def model_parallel_phase(dev, train_rows) -> dict:
     return rows
 
 
+# --------------------------------------------------------------------------
+# phase 11b: the dry run, in a child process
+# --------------------------------------------------------------------------
+
+DRYRUN_LAYERS = 4           # Qwen2.5-3B's published widths, 4 of 36 layers
+DRYRUN_MEM_REL = 0.10       # predicted peak against the card's
+DRYRUN_BUDGET_S = 120.0     # the phase's wall, child process included
+# production cells traced at full width and depth on the fake world
+DRYRUN_CELLS = (("qwen2.5-3b", "decode_32k", "single"),
+                ("mixtral-8x7b", "decode_32k", "multipod"))
+EXAMPLES = ("torch_quickstart.py", "torch_parked_decode.py")
+
+
+def dryrun_real_step(cfg, batch, dev, store: str) -> dict:
+    """One ``train_step`` of ``cfg`` on the card over an NCCL group of one
+    rank and a (1, 1) mesh (the dry run's layout code on real tensors):
+    FLOPs by ``FlopCounterMode``, the peak of device memory over what the
+    process held before the state was drawn."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distributed.sharding import Rules, distribute
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import init_params
+    from repro_torch.models.lm import LM
+    from repro_torch.training.optimizer import init_opt_state
+    from repro_torch.training.train_step import TrainConfig, train_step
+
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = make_host_mesh(model=1, data=1, device_type="cuda")
+        rules = Rules(cfg, mesh, sp_activations=True)
+        sync(dev)
+        before = torch.cuda.memory_allocated(dev)
+        params = init_params(cfg, dev)
+        state = {"params": params, "opt": init_opt_state(params)}
+        state = distribute(state, rules.state_spec(state), mesh)
+        batch = distribute(batch, rules.batch_spec(batch), mesh)
+        del params
+        sync(dev)
+        held = torch.cuda.memory_allocated(dev) - before
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as counter:
+            _, metrics = train_step(LM(cfg), TrainConfig(), state, batch,
+                                    shard=rules.act_shard())
+        loss = _full(metrics["loss"]).item()
+        sync(dev)
+        out = dict(wall_s=time.perf_counter() - t0, loss=loss,
+                   flops=counter.get_total_flops(), held_bytes=held,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev) - before)
+        del state, batch, metrics
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_child(out_path: str) -> int:
+    """Phase 11b's body, run in a process of its own (the parent holds an
+    NCCL group, and a process has one default group): Qwen2.5-3B at its
+    published widths, DRYRUN_LAYERS layers, one real ``train_step`` on 2 x
+    1024 tokens against the dry run's prediction of it on a (1, 1) fake
+    mesh of the card's device type (FLOPs equal, peak memory within
+    DRYRUN_MEM_REL); then ``run_cell`` on DRYRUN_CELLS at full width and
+    depth.  No kernel launches, and the fake traces take no device
+    memory."""
+    import dataclasses as dc
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.device import card_line
+    from repro_torch.distributed.sharding import Rules
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.training.data import DataConfig, SyntheticStream
+
+    dev = torch.device("cuda", 0)
+    card = card_line(dev)
+    capacity = torch.cuda.get_device_properties(dev).total_memory
+    cfg = dc.replace(configs.get("qwen2.5-3b"), num_layers=DRYRUN_LAYERS)
+    b, s = FULL_TRAIN_SHAPE
+    batch = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                       global_batch=b, seed=SEED),
+                            device=dev).batch_at(0)
+    rows = {"card": card, "capacity_bytes": capacity}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+        real = dryrun_real_step(cfg, batch, dev, f"{d}/store")
+        del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        with dryrun.fake_world(1):
+            mesh = make_host_mesh(model=1, data=1, device_type="cuda")
+            cost, mem = dryrun.trace_once(
+                LM(cfg), ShapeConfig("train_2x1024", s, b, "train"), mesh,
+                Rules(cfg, mesh, sp_activations=True), "cuda")
+        trace_s = time.perf_counter() - t0
+        mem_rel = ((mem["peak_bytes"] - real["peak_bytes"])
+                   / real["peak_bytes"])
+        rows["step"] = dict(real=real, predicted=dict(
+            flops=cost["flops"], peak_bytes=mem["peak_bytes"],
+            argument_bytes=mem["argument_bytes"], trace_s=trace_s),
+            peak_rel=mem_rel)
+        print(f"dry run: {cfg.name} ({cfg.num_layers} of 36 layers, d_model "
+              f"{cfg.d_model}), one train_step on {b} x {s} tokens under "
+              f"minimal on {card}: real {real['flops']} FLOPs, peak "
+              f"{real['peak_bytes']} B ({real['held_bytes']} B of state and "
+              f"batch), wall {real['wall_s']:.3f} s, loss {real['loss']:.6f}; "
+              f"the dry run on a (1, 1) fake mesh (cuda): {cost['flops']:.0f} "
+              f"FLOPs, peak {mem['peak_bytes']} B (argument "
+              f"{mem['argument_bytes']} B), relative {mem_rel:+.6f} (bound "
+              f"{DRYRUN_MEM_REL}), traced in {trace_s:.2f} s")
+        if cost["flops"] != real["flops"]:
+            raise AssertionError(f"dry run: predicted FLOPs {cost['flops']} "
+                                 f"!= measured {real['flops']}")
+        if not abs(mem_rel) <= DRYRUN_MEM_REL:
+            raise AssertionError(f"dry run: predicted peak {mem['peak_bytes']}"
+                                 f" vs measured {real['peak_bytes']}")
+        cells = []
+        for arch, shape_name, mesh_kind in DRYRUN_CELLS:
+            rec = dryrun.run_cell(arch, shape_name, mesh_kind, out_dir=d,
+                                  device="cuda")
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry run {rec['cell']}: {rec}")
+            m, c = rec["memory"], rec["cost"]
+            fits = m["peak_bytes"] <= capacity
+            cells.append(dict(cell=rec["cell"], devices=rec["devices"],
+                              trace_s=rec["compile_s"],
+                              probe_s=rec["probe_s"], fits=fits,
+                              memory=m, flops=c["flops"],
+                              bytes_accessed=c["bytes_accessed"],
+                              coll_total_bytes=c["coll_total_bytes"]))
+            print(f"dry run {rec['cell']} ({rec['devices']} devices, fake "
+                  f"world, device type cuda): traced {rec['compile_s']} s + "
+                  f"probes {rec['probe_s']} s; per device {c['flops']:.6g} "
+                  f"FLOPs, {c['bytes_accessed']:.6g} B accessed, "
+                  f"{c['coll_total_bytes']:.6g} B of collectives; peak "
+                  f"{m['peak_bytes']} B against the card's {capacity} B: "
+                  f"fits {fits}")
+        rows["cells"] = cells
+        moved = torch.cuda.memory_allocated(dev) - held
+    counts = launch_counts()
+    rows.update(launches=counts, device_bytes_moved=moved)
+    print(f"dry run: device memory allocated across the fake traces moved "
+          f"by {moved} B; kernel launches {counts}")
+    if moved:
+        raise AssertionError(f"dry run: fake traces took {moved} B")
+    if any(counts.values()):
+        raise AssertionError(f"dry run: kernels launched: {counts}")
+    Path(out_path).write_text(json.dumps(rows))
+    return 0
+
+
+def dryrun_phase() -> dict:
+    """Phase 11b: ``dryrun_child`` in a child process, within
+    DRYRUN_BUDGET_S; then the two example twins on the card, each a
+    process of its own that must exit 0."""
+    import subprocess
+    import tempfile
+
+    here = Path(__file__).resolve()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dr_") as d:
+        out = Path(d) / "dryrun.json"
+        subprocess.run([sys.executable, str(here), "--dryrun-child",
+                        str(out)], check=True)
+        rows = json.loads(out.read_text())
+    wall = time.perf_counter() - t0
+    rows["wall_s"] = wall
+    print(f"dry run phase: {wall:.1f} s (budget {DRYRUN_BUDGET_S} s)")
+    if wall > DRYRUN_BUDGET_S:
+        raise AssertionError(f"dry run phase took {wall:.1f} s")
+    env = dict(os.environ, PYTHONPATH=str(here.parent / "src"))
+    for name in EXAMPLES:
+        t1 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(here.parent / "examples"
+                                                / name)],
+                           capture_output=True, text=True, env=env)
+        print(f"example {name} on the card: exit {r.returncode} in "
+              f"{time.perf_counter() - t1:.1f} s; last line "
+              f"{r.stdout.strip().splitlines()[-1:]}")
+        if r.returncode:
+            raise AssertionError(f"example {name}: {r.stdout}{r.stderr}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--dryrun-child":
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        return dryrun_child(sys.argv[2])
     # cuBLAS reads this when it makes its handle: the train phase's
     # kill-and-resume check runs under deterministic algorithms, which
     # need it set before the first product on the card
@@ -3207,6 +3417,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     mp_rows = model_parallel_phase(dev, train_rows)
     stamp("model-parallel phase")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_rows = dryrun_phase()
+    stamp("dry-run phase and examples")
 
     # ``launches`` is the count on the kernel's own main path: pipes8 for
     # the Split -> FW -> NAT -> Merge kernels (0 for crc16 and
@@ -3256,6 +3470,7 @@ def main() -> int:
     print(json.dumps({"lm": lm_rows}))
     print(json.dumps({"train": train_rows}))
     print(json.dumps({"fabric": fabric_rows, "model_parallel": mp_rows}))
+    print(json.dumps({"dryrun": dryrun_rows}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

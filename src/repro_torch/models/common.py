@@ -211,7 +211,9 @@ def _local_einsum(eq, a, b, local_fn=None):
         xa, xb = xa.float(), xb.float()
     product = (local_fn(xa, xb) if local_fn is not None
                else torch.einsum(eq, xa, xb))
-    res = DTensor.from_local(product, a.device_mesh,
+    # DTensor reshapes its local tensor as a view, which a permuted
+    # einsum result may not allow
+    res = DTensor.from_local(product.contiguous(), a.device_mesh,
                              placements, run_check=False, shape=shape,
                              stride=torch.empty(shape, device="meta")
                              .stride())
@@ -222,6 +224,28 @@ def _local_einsum(eq, a, b, local_fn=None):
     return res
 
 
+def einsum(eq, *ops):
+    """``torch.einsum``; on DTensors, operand by operand from the left,
+    each pair shard by shard (``_local_einsum``) where their layouts
+    allow.  DTensor's own einsum folds the batch letters into one axis,
+    which it cannot do for letters sharded over two mesh dims."""
+    from repro_torch.distributed.sharding import is_dtensor
+    if not any(is_dtensor(o) for o in ops):
+        return torch.einsum(eq, *ops)
+    ins, out = eq.split("->")
+    terms = ins.split(",")
+    acc, lacc = ops[0], terms[0]
+    for i in range(1, len(ops)):
+        rest = "".join(terms[i + 1:]) + out
+        keep = out if i == len(ops) - 1 else "".join(dict.fromkeys(
+            c for c in lacc + terms[i] if c in rest))
+        sub = f"{lacc},{terms[i]}->{keep}"
+        local = _local_einsum(sub, acc, ops[i])
+        acc = torch.einsum(sub, acc, ops[i]) if local is None else local
+        lacc = keep
+    return acc
+
+
 def matmul(x, w):
     """``x @ w`` for x (..., K) and w (K, N); two DTensors go shard by
     shard (``_local_einsum``, each rank's ``@``) where their layouts
@@ -229,6 +253,86 @@ def matmul(x, w):
     lead = "abcdefgh"[:x.dim() - 1]
     local = _local_einsum(f"{lead}y,yz->{lead}z", x, w, torch.matmul)
     return x @ w if local is None else local
+
+
+class _GradAsInput(torch.autograd.Function):
+    """Identity whose backward lays the gradient out as the input was
+    (a DTensor gradient that comes back ``Partial`` is reduced there)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.layout = (x.device_mesh, tuple(x.placements))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, placements = ctx.layout
+        return g if tuple(g.placements) == placements else \
+            g.redistribute(mesh, placements)
+
+
+def grad_as_input(x):
+    """``x``; for a DTensor, its gradient is laid out as ``x`` at this
+    point of the backward pass."""
+    from repro_torch.distributed.sharding import is_dtensor
+    return _GradAsInput.apply(x) if is_dtensor(x) else x
+
+
+def local_apply(fn, x, dim: int):
+    """``fn(x)`` for an ``fn`` that works along ``dim`` alone (a roll, a
+    pad, a cumulative sum); a DTensor is first gathered on the mesh dims
+    that shard ``dim`` and ``fn`` then runs on each rank's shard, as DTensor
+    has no rule for some of these operations in some torch versions.  The
+    result keeps the input's layout."""
+    from repro_torch.distributed.sharding import is_dtensor
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    want = [Replicate() if not isinstance(p, (Shard, Replicate))
+            or (isinstance(p, Shard) and p.dim == dim) else p
+            for p in x.placements]
+    if want != list(x.placements):
+        x = x.redistribute(mesh, want)
+    out = fn(x.to_local(grad_placements=want))
+    shape = list(out.shape)
+    for p, size in zip(want, mesh.shape):
+        if isinstance(p, Shard):
+            shape[p.dim] *= size
+    shape = torch.Size(shape)
+    return DTensor.from_local(out, mesh, want, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def gather_where(x, ref, dim: int):
+    """DTensor ``x`` gathered on the mesh dims that shard ``ref``'s axis
+    ``dim``; anything else as it is.  A decode step's query meets a cache
+    sharded along its ring this way: the products then run where the
+    ring's slices are (context parallelism) instead of gathering the
+    ring."""
+    from repro_torch.distributed.sharding import is_dtensor
+    if not (is_dtensor(x) and is_dtensor(ref)):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    want = [Replicate() if isinstance(pr, Shard) and pr.dim == dim else px
+            for px, pr in zip(x.placements, ref.placements)]
+    return x if want == list(x.placements) else \
+        x.redistribute(x.device_mesh, want)
+
+
+def batch_only(x):
+    """A DTensor (B, S, ...) gathered on every mesh dim that does not
+    shard its batch axis, as Megatron's sequence parallelism gathers the
+    sequence before a mixer that scans it; anything else as it is."""
+    from repro_torch.distributed.sharding import is_dtensor
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    want = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in x.placements]
+    return x if want == list(x.placements) else \
+        x.redistribute(x.device_mesh, want)
 
 
 def blockwise_attention(q, k, v, *, causal=True, window=None, q_offset=0,
@@ -253,16 +357,22 @@ def blockwise_attention(q, k, v, *, causal=True, window=None, q_offset=0,
                          f"the lengths ({s}, {t})")
     scale = e ** -0.5
     dev = q.device
+    from repro_torch.distributed.sharding import is_dtensor
+    # DTensor operands: the accumulators take the first block's layout
+    # (made plain, they would be whole on every rank)
+    dist = is_dtensor(q)
     outs = []
     for qi in range(s // q_block):
         qblk = q[:, qi * q_block:(qi + 1) * q_block]
         qpos = torch.arange(q_block, device=dev) + q_offset + qi * q_block
-        m = torch.full((b, kh, g, q_block), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        norm = torch.zeros((b, kh, g, q_block), dtype=torch.float32,
+        m = norm = acc = None
+        if not dist:
+            m = torch.full((b, kh, g, q_block), NEG_INF, dtype=torch.float32,
                            device=dev)
-        acc = torch.zeros((b, kh, g, q_block, ve), dtype=torch.float32,
-                          device=dev)
+            norm = torch.zeros((b, kh, g, q_block), dtype=torch.float32,
+                               device=dev)
+            acc = torch.zeros((b, kh, g, q_block, ve), dtype=torch.float32,
+                              device=dev)
         for ki in range(t // kv_block):
             kblk = k[:, ki * kv_block:(ki + 1) * kv_block]
             vblk = v[:, ki * kv_block:(ki + 1) * kv_block]
@@ -275,11 +385,17 @@ def blockwise_attention(q, k, v, *, causal=True, window=None, q_offset=0,
             if window is not None:
                 mask &= (qpos[:, None] - kvpos[None, :]) < window
             srel = torch.where(mask, srel, NEG_INF)
-            m_new = torch.maximum(m, srel.amax(dim=-1))
+            top = srel.amax(dim=-1)
+            if m is None:
+                m = torch.full_like(top, NEG_INF)
+                norm = torch.zeros_like(top)
+            m_new = torch.maximum(m, top)
             p = torch.exp(srel - m_new[..., None])
             alpha = torch.exp(m - m_new)
             norm = norm * alpha + p.sum(dim=-1)
             pv = f32_einsum("bkgqt,btke->bkgqe", p.to(vblk.dtype), vblk)
+            if acc is None:
+                acc = torch.zeros_like(pv)
             acc = acc * alpha[..., None] + pv
             m = m_new
         out = acc / torch.clamp(norm[..., None], min=1e-30)
@@ -335,10 +451,9 @@ def proj(x, w):
         x.shape[:-1] + w.shape[1:])
 
 
-def attn_qkv(p, x, cfg: ModelConfig, cos, sin):
+def attn_qkv_heads(p, x, cfg: ModelConfig, cos, sin):
     """Project + position-encode.
-    x: (B,S,D) -> q (B,S,K,G,E), k/v (B,S,K,E)."""
-    h, k = cfg.num_heads, cfg.num_kv_heads
+    x: (B,S,D) -> q (B,S,H,E), k/v (B,S,K,E)."""
     q = proj(x, p["wq"])
     kx = proj(x, p["wk"])
     vx = proj(x, p["wv"])
@@ -349,16 +464,49 @@ def attn_qkv(p, x, cfg: ModelConfig, cos, sin):
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         kx = rmsnorm(kx, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, cos, sin)
-    kx = apply_rope(kx, cos, sin)
-    b, s = q.shape[:2]
-    return q.reshape(b, s, k, h // k, cfg.head_dim), kx, vx
+    return apply_rope(q, cos, sin), apply_rope(kx, cos, sin), vx
+
+
+def split_heads(q, k: int):
+    """(B, S, H, E) -> (B, S, K, H/K, E).  DTensor splits a sharded axis
+    only where its first factor divides the shards, so a DTensor whose
+    head axis is sharded over a mesh dim that does not divide K is first
+    gathered on that mesh dim (a decode step's one-token queries)."""
+    b, s, h, e = q.shape
+    from repro_torch.distributed.sharding import is_dtensor
+    if is_dtensor(q):
+        from torch.distributed.tensor import Replicate, Shard
+        want = [Replicate() if (isinstance(p, Shard) and p.dim == 2
+                                and k % size) else p
+                for p, size in zip(q.placements, q.device_mesh.shape)]
+        if want != list(q.placements):
+            q = q.redistribute(q.device_mesh, want)
+    return q.reshape(b, s, k, h // k, e)
+
+
+def attn_qkv(p, x, cfg: ModelConfig, cos, sin):
+    """Project + position-encode.
+    x: (B,S,D) -> q (B,S,K,G,E), k/v (B,S,K,E)."""
+    q, kx, vx = attn_qkv_heads(p, x, cfg, cos, sin)
+    return split_heads(q, cfg.num_kv_heads), kx, vx
+
+
+def attn_out_heads(p, o):
+    """o: (B, S, H, E) -> (B, S, D).  DTensors contract (H, E) against
+    ``wo`` shard by shard: flattening a ``wo`` sharded on two mesh dims
+    gives a strided layout whose shards DTensor sizes by reading an index
+    tensor, a host read that fake tensors refuse."""
+    local = _local_einsum("bshe,hed->bsd", o, p["wo"])
+    if local is not None:
+        return local
+    b, s, h, e = o.shape
+    return matmul(o.reshape(b, s, h * e), p["wo"].reshape(h * e, -1))
 
 
 def attn_out(p, o):
     """o: (B, S, K, G, E) -> (B, S, D)."""
     b, s, k, g, e = o.shape
-    return matmul(o.reshape(b, s, k * g * e), p["wo"].reshape(k * g * e, -1))
+    return attn_out_heads(p, o.reshape(b, s, k * g, e))
 
 
 # --------------------------------------------------------------------------
@@ -394,15 +542,72 @@ def embed_init(gen, cfg: ModelConfig, device):
     return p
 
 
+def shard_offset(x, dim: int) -> int:
+    """This rank's first index along ``dim`` of a DTensor ``x``: the axis
+    is split over the mesh dims that shard it in mesh order, major to
+    minor (shards are even, ``sharding.distribute``)."""
+    from torch.distributed.tensor import Shard
+    offset, span = 0, x.shape[dim]
+    for p, size, c in zip(x.placements, x.device_mesh.shape,
+                          x.device_mesh.get_coordinate()):
+        if isinstance(p, Shard) and p.dim == dim:
+            span //= size
+            offset += c * span
+    return offset
+
+
+def _embed_rows(table, ids):
+    """``table[ids]`` of DTensors shard by shard (Megatron's
+    vocab-parallel embedding): each rank looks its own ids up in its own
+    rows of the table, zero where another rank holds the row, and the
+    rows are summed over the mesh dims that shard the vocabulary; the ids
+    keep their layout (DTensor's own lookup refuses ids sharded over two
+    mesh dims in some torch versions).  None where the table is laid out
+    otherwise than vocab-sharded or replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if any(not (isinstance(p, Replicate) or p == Shard(0))
+           for p in table.placements):
+        return None
+    mesh = table.device_mesh
+    want = [Replicate() if isinstance(pt, Shard) or not isinstance(
+        pi, (Replicate, Shard)) else pi
+        for pt, pi in zip(table.placements, ids.placements)]
+    if want != list(ids.placements):
+        ids = ids.redistribute(mesh, want)
+    out_p, grad_p = [], []
+    for pt, pi in zip(table.placements, ids.placements):
+        out_p.append(Partial() if isinstance(pt, Shard) else pi)
+        grad_p.append(Partial() if isinstance(pi, Shard) else pt)
+    local = table.to_local(grad_placements=grad_p)
+    slot = ids.to_local() - shard_offset(table, 0)
+    mine = (slot >= 0) & (slot < local.shape[0])
+    rows = local[torch.clamp(slot, 0, local.shape[0] - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                          device=rows.device))
+    shape = torch.Size(tuple(ids.shape) + (table.shape[1],))
+    out = DTensor.from_local(rows, mesh, out_p, run_check=False, shape=shape,
+                             stride=torch.empty(shape, device="meta")
+                             .stride())
+    if any(isinstance(p, Partial) for p in out_p):
+        out = out.redistribute(mesh, [Replicate() if isinstance(p, Partial)
+                                      else p for p in out_p])
+    return out
+
+
 def embed_apply(p, tokens, cfg: ModelConfig, one_hot_matmul: bool = False):
     """Token embeddings; ``one_hot_matmul`` takes them as a one-hot product
     with the table (the reference's vocab-parallel form), the same rows."""
+    from repro_torch.distributed.sharding import is_dtensor
     table = p["table"]
     if one_hot_matmul:
         oh = F.one_hot(tokens.long(), table.shape[0]).to(table.dtype)
         x = matmul(oh, table)
     else:
-        x = table[tokens.long()]
+        x = None
+        if is_dtensor(table) and is_dtensor(tokens):
+            x = _embed_rows(table, tokens.long())
+        if x is None:
+            x = table[tokens.long()]
     if cfg.embed_scale:
         # gemma scaling; sqrt(d_model) is rounded to the table's dtype first
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,

@@ -64,6 +64,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import common as cm
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -159,18 +160,52 @@ def _prefill_cache_layout(arr, cache_len: int):
     s = arr.shape[1]
     if cache_len >= s:
         pad = [0, 0] * (arr.dim() - 2) + [0, cache_len - s]
-        return F.pad(arr, pad)
-    return torch.roll(arr[:, -cache_len:], (s - cache_len) % cache_len,
-                      dims=1)
+        return cm.local_apply(lambda a: F.pad(a, pad), arr, 1)
+    return cm.local_apply(
+        lambda a: torch.roll(a, (s - cache_len) % cache_len, dims=1),
+        arr[:, -cache_len:], 1)
 
 
 def _ring_write(buf, new, lengths, shard: Shard):
     """A new buffer with the new token's row at slot (lengths-1) % ring."""
     idx = (lengths - 1) % buf.shape[1]
-    # out of place: a DTensor cache changes placement in the write
+    if is_dtensor(buf):
+        return shard(_ring_write_local(buf, new, idx), "cache_kv")
     out = buf.index_put((torch.arange(new.shape[0], device=buf.device), idx),
                         new[:, 0].to(buf.dtype))
     return shard(out, "cache_kv")
+
+
+def _ring_write_local(buf, new, idx):
+    """``_ring_write`` of a DTensor (B, T, ...) buffer in its own layout:
+    ``new`` and ``idx`` are laid out as ``buf`` on every axis but the
+    ring's (replicated there, so each rank holding a slice of the ring
+    sees every row), and each rank writes the rows whose slot falls in its
+    slice.  (DTensor's own ``index_put`` gathers the whole ring first.)"""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = buf.device_mesh
+    want = [p if isinstance(p, Shard) and p.dim != 1 else Replicate()
+            for p in buf.placements]
+    new = new.redistribute(mesh, want) if is_dtensor(new) else \
+        DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                           run_check=False).redistribute(mesh, want)
+    idx_want = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in buf.placements]
+    idx = idx.redistribute(mesh, idx_want) if is_dtensor(idx) else \
+        DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim,
+                           run_check=False).redistribute(mesh, idx_want)
+    local = buf.to_local()
+    slot = idx.to_local() - cm.shard_offset(buf, 1)
+    mine = (slot >= 0) & (slot < local.shape[1])
+    slot = torch.clamp(slot, 0, local.shape[1] - 1)
+    rows = torch.arange(local.shape[0], device=local.device)
+    row = torch.where(mine.view(-1, *[1] * (local.dim() - 2)),
+                      new.to_local()[:, 0].to(local.dtype),
+                      local[rows, slot])
+    out = local.index_put((rows, slot), row)
+    return DTensor.from_local(out, mesh, buf.placements, run_check=False,
+                              shape=buf.shape, stride=buf.stride())
 
 
 def _attn_kw(ctx: Ctx) -> dict:
@@ -182,33 +217,34 @@ def _attn_kw(ctx: Ctx) -> dict:
 def _attn_sublayer(p, x, ctx: Ctx, cache, *, window, causal=True):
     cfg = ctx.cfg
     h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = cm.attn_qkv(p["attn"], h, cfg, ctx.cos, ctx.sin)
+    q, k, v = cm.attn_qkv_heads(p["attn"], h, cfg, ctx.cos, ctx.sin)
     if ctx.phase == "decode":
         cache = {"k": _ring_write(cache["k"], k, ctx.lengths, ctx.shard),
                  "v": _ring_write(cache["v"], v, ctx.lengths, ctx.shard)}
         cl = cache["k"].shape[1]
         valid = torch.clamp(ctx.lengths, max=cl)
         win = None if (window is None or window >= cl) else window
+        q = cm.gather_where(cm.split_heads(q, cfg.num_kv_heads),
+                            cache["k"], 1)
         o = cm.decode_attention(q[:, 0], cache["k"], cache["v"], valid,
                                 window=win)[:, None]
-    else:
-        # KV heads expanded to the query heads, so the head axis is one
-        # contiguous (model-shardable) axis
-        b_, s_, kh_, g_, e_ = q.shape
-        k = ctx.shard(k, "kv_compact")
-        v = ctx.shard(v, "kv_compact")
-        qf = ctx.shard(q.reshape(b_, s_, kh_ * g_, 1, e_), "q_heads")
-        kf = ctx.shard(k.repeat_interleave(g_, dim=2), "kv_heads")
-        vf = ctx.shard(v.repeat_interleave(g_, dim=2), "kv_heads")
-        o = cm.blockwise_attention(qf, kf, vf, causal=causal, window=window,
-                                   **_attn_kw(ctx))
-        o = o.reshape(b_, s_, kh_, g_, e_)
-        if ctx.phase == "prefill":
-            cl = ctx.cache_len if window is None else min(ctx.cache_len,
-                                                          window)
-            cache = {"k": _prefill_cache_layout(k, cl),
-                     "v": _prefill_cache_layout(v, cl)}
-    return x + cm.attn_out(p["attn"], o), cache
+        return x + cm.attn_out(p["attn"], o), cache
+    # KV heads expanded to the query heads, so the head axis is one
+    # contiguous (model-shardable) axis, never split into (K, G)
+    b_, s_, h_, e_ = q.shape
+    g_ = h_ // cfg.num_kv_heads
+    k = ctx.shard(k, "kv_compact")
+    v = ctx.shard(v, "kv_compact")
+    qf = ctx.shard(q.reshape(b_, s_, h_, 1, e_), "q_heads")
+    kf = ctx.shard(k.repeat_interleave(g_, dim=2), "kv_heads")
+    vf = ctx.shard(v.repeat_interleave(g_, dim=2), "kv_heads")
+    o = cm.blockwise_attention(qf, kf, vf, causal=causal, window=window,
+                               **_attn_kw(ctx))
+    if ctx.phase == "prefill":
+        cl = ctx.cache_len if window is None else min(ctx.cache_len, window)
+        cache = {"k": _prefill_cache_layout(k, cl),
+                 "v": _prefill_cache_layout(v, cl)}
+    return x + cm.attn_out_heads(p["attn"], o.reshape(b_, s_, h_, e_)), cache
 
 
 def _cross_sublayer(p, x, ctx: Ctx, cache):
@@ -216,7 +252,6 @@ def _cross_sublayer(p, x, ctx: Ctx, cache):
     encoder output (cached at prefill), with no rotary embedding."""
     cfg = ctx.cfg
     h = cm.rmsnorm(x, p["ln_cross"], cfg.norm_eps)
-    hq = cfg.num_heads // cfg.num_kv_heads
     if ctx.phase == "decode":
         ck, cv = cache["ck"], cache["cv"]
     else:
@@ -224,15 +259,15 @@ def _cross_sublayer(p, x, ctx: Ctx, cache):
         cv = cm.proj(ctx.enc_out, p["cross"]["wv"])
         if ctx.phase == "prefill":
             cache = {"ck": ck, "cv": cv}
-    q = cm.proj(h, p["cross"]["wq"])
-    b, s = q.shape[:2]
-    q = q.reshape(b, s, cfg.num_kv_heads, hq, cfg.head_dim)
+    q = cm.split_heads(cm.proj(h, p["cross"]["wq"]), cfg.num_kv_heads)
+    b = q.shape[0]
     if ctx.phase == "decode":
         lengths = torch.full((b,), ck.shape[1], dtype=torch.int32,
                              device=x.device)
-        o = cm.decode_attention(q[:, 0], ck, cv, lengths)[:, None]
+        o = cm.decode_attention(cm.gather_where(q, ck, 1)[:, 0], ck, cv,
+                                lengths)[:, None]
     else:
-        o = cm.blockwise_attention(q, ck, cv, causal=False)
+        o = cm.blockwise_attention(q, ck, cv, causal=False, **_attn_kw(ctx))
     return x + cm.attn_out(p["cross"], o), cache
 
 
@@ -340,6 +375,19 @@ def _layer_apply(kinds, p_layer, x, aux, ctx: Ctx, c_layer=None):
         aux = aux + a
     return x, aux, (None if all(v is None for v in new_c.values())
                     else new_c)
+
+
+def _rows_like(labels, logits):
+    """DTensor ``labels`` (B, S) laid out as ``logits``' (B, S) axes (a
+    local slice of a replicated axis, no collective), so the loss's
+    elementwise work runs on ``logits``' shards rather than gathering
+    them; anything else as it is."""
+    if not (is_dtensor(labels) and is_dtensor(logits)):
+        return labels
+    from torch.distributed.tensor import Replicate, Shard
+    want = [p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+            for p in logits.placements]
+    return labels.redistribute(labels.device_mesh, want)
 
 
 # ``dots``: the matrix products' outputs are saved, the rest recomputed
@@ -531,7 +579,7 @@ class LM:
         "aux"})."""
         with mesh_scope(params):
             logits, aux = self.forward_train(params, batch, shard)
-            labels = batch["labels"]
+            labels = _rows_like(batch["labels"], logits)
             mask = labels >= 0
             lab = torch.clamp(labels, min=0).long()
             logits = logits.float()
@@ -539,10 +587,12 @@ class LM:
             # gather gives a masked partial that reduces in the
             # subtraction, over the shape it was made with
             lse = torch.logsumexp(logits, dim=-1, keepdim=True)
-            if self.vocab_parallel:
+            if self.vocab_parallel or is_dtensor(logits):
                 # shard-local gold pick: reduces over the vocab-sharded
                 # axis instead of gathering logits (Megatron
-                # vocab-parallel CE)
+                # vocab-parallel CE); on any DTensor logits, since the
+                # gather's backward makes a zero gradient of the whole
+                # logits on every rank
                 vid = torch.arange(logits.shape[-1],
                                    device=logits.device)[None, None, :]
                 gold = torch.sum(torch.where(vid == lab[..., None], logits,

@@ -39,7 +39,7 @@ def mla_init(gen, cfg: ModelConfig, device, lead: tuple[int, ...] = ()):
 def mla_latent(p, x, cfg: ModelConfig, cos, sin):
     """Compress x to the cached latent: (c_kv (B,S,R), k_rope (B,S,1,Er))."""
     m = cfg.mla
-    kv_a = x @ p["wkv_a"]
+    kv_a = cm.matmul(x, p["wkv_a"])
     c_kv = cm.rmsnorm(kv_a[..., : m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
     k_rope = kv_a[..., m.kv_lora_rank:][:, :, None, :]          # (B,S,1,Er)
     return c_kv, cm.apply_rope(k_rope, cos, sin)
@@ -48,8 +48,8 @@ def mla_latent(p, x, cfg: ModelConfig, cos, sin):
 def mla_queries(p, x, cfg: ModelConfig, cos, sin):
     """(q_nope (B,S,H,En), q_rope (B,S,H,Er))."""
     m = cfg.mla
-    cq = cm.rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-    q = torch.einsum("bsr,rhe->bshe", cq, p["wq_b"])
+    cq = cm.rmsnorm(cm.matmul(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+    q = cm.einsum("bsr,rhe->bshe", cq, p["wq_b"])
     q_rope = cm.apply_rope(q[..., m.nope_head_dim:], cos, sin)
     return q[..., : m.nope_head_dim], q_rope
 
@@ -67,8 +67,8 @@ def mla_attention(p, x, cfg: ModelConfig, cos, sin, q_block=512,
         c_kv = shard(c_kv, "mla_latent")
         k_rope = shard(k_rope[:, :, 0], "mla_latent")[:, :, None]
 
-    k_nope = torch.einsum("bsr,rhe->bshe", c_kv, p["wk_b"])
-    v = torch.einsum("bsr,rhe->bshe", c_kv, p["wv_b"])
+    k_nope = cm.einsum("bsr,rhe->bshe", c_kv, p["wk_b"])
+    v = cm.einsum("bsr,rhe->bshe", c_kv, p["wv_b"])
     q = torch.cat([q_nope, q_rope], dim=-1)                     # (B,S,H,En+Er)
     k = torch.cat([k_nope, k_rope.expand(k_nope.shape[:3]
                                          + (m.rope_head_dim,))], dim=-1)
@@ -81,7 +81,7 @@ def mla_attention(p, x, cfg: ModelConfig, cos, sin, q_block=512,
         q = shard(q, "q_heads")
     o = cm.blockwise_attention(q, k, v, causal=True, q_block=q_block,
                                kv_block=kv_block)          # (B,S,H,1,Ev)
-    out = torch.einsum("bshe,hed->bsd", o[:, :, :, 0], p["wo"])
+    out = cm.einsum("bshe,hed->bsd", o[:, :, :, 0], p["wo"])
     return out, (c_kv, k_rope[:, :, 0, :])
 
 
@@ -93,7 +93,9 @@ def mla_decode(p, x, cfg: ModelConfig, cos, sin, cache, lengths):
     q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]                 # (B,H,*)
     c_kv, k_rope = cache
 
-    q_lat = torch.einsum("bhe,rhe->bhr", q_nope, p["wk_b"])     # absorb W^UK
+    q_lat = cm.einsum("bhe,rhe->bhr", q_nope, p["wk_b"])     # absorb W^UK
+    q_lat = cm.gather_where(q_lat, c_kv, 1)
+    q_rope = cm.gather_where(q_rope, k_rope, 1)
     s_lat = cm.f32_einsum("bhr,btr->bht", q_lat, c_kv)
     s_rope = cm.f32_einsum("bhe,bte->bht", q_rope, k_rope)
     scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
@@ -102,6 +104,6 @@ def mla_decode(p, x, cfg: ModelConfig, cos, sin, cache, lengths):
     mask = torch.arange(t, device=x.device)[None, :] < lengths[:, None]
     s = torch.where(mask[:, None], s, cm.NEG_INF)
     pattn = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bht,btr->bhr", pattn.to(c_kv.dtype), c_kv)
-    o = torch.einsum("bhr,rhe->bhe", o_lat, p["wv_b"])          # absorb W^UV
-    return torch.einsum("bhe,hed->bd", o, p["wo"])[:, None, :]
+    o_lat = cm.einsum("bht,btr->bhr", pattn.to(c_kv.dtype), c_kv)
+    o = cm.einsum("bhr,rhe->bhe", o_lat, p["wv_b"])          # absorb W^UV
+    return cm.einsum("bhe,hed->bd", o, p["wo"])[:, None, :]

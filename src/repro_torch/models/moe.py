@@ -44,6 +44,25 @@ def _act(h, act: str):
     return F.gelu(h, approximate="tanh") if act == "gelu" else F.silu(h)
 
 
+def _groups(x, g: int, tg: int):
+    """x (B, S, D) as (G, T, D) dispatch groups.  A DTensor keeps a
+    batch shard only where whole groups fall in each shard (G divisible
+    by its shards) and is gathered on every other mesh dim first: DTensor
+    cannot merge axes sharded over two mesh dims."""
+    from repro_torch.distributed.sharding import is_dtensor
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        rows = 1
+        for p, size in zip(x.placements, x.device_mesh.shape):
+            if isinstance(p, Shard) and p.dim == 0:
+                rows *= size
+        want = [p if isinstance(p, Shard) and p.dim == 0 and g % rows == 0
+                else Replicate() for p in x.placements]
+        if want != list(x.placements):
+            x = x.redistribute(x.device_mesh, want)
+    return x.reshape(g, tg, x.shape[-1])
+
+
 def moe_apply(p, x, cfg: ModelConfig, act: str, top_i=None):
     """x: (B, S, D) -> (out (B, S, D), aux_loss f32 scalar).
 
@@ -57,9 +76,9 @@ def moe_apply(p, x, cfg: ModelConfig, act: str, top_i=None):
     while (b * s) % tg:  # the largest divisor of b*s within group_tokens
         tg -= 1
     g = b * s // tg
-    xt = x.reshape(g, tg, d)
+    xt = _groups(x, g, tg)
 
-    logits = torch.einsum("gtd,dx->gtx", xt.float(), p["router"])
+    logits = cm.einsum("gtd,dx->gtx", xt.float(), p["router"])
     probs = torch.softmax(logits, dim=-1)                       # (G,T,X)
     if top_i is None:
         top_p, top_i = torch.topk(probs, mo.top_k, dim=-1)      # (G,T,K)
@@ -81,15 +100,17 @@ def moe_apply(p, x, cfg: ModelConfig, act: str, top_i=None):
         * keep[..., None]
 
     # dispatch: (G,T,X,C); combine adds the router weights
-    dispatch = torch.einsum("gtkx,gtkc->gtxc", onehot, pos_oh)
-    combine = torch.einsum("gtkx,gtkc,gtk->gtxc", onehot, pos_oh, top_p)
+    dispatch = cm.einsum("gtkx,gtkc->gtxc", onehot, pos_oh)
+    combine = cm.einsum("gtkx,gtkc,gtk->gtxc", onehot, pos_oh, top_p)
 
-    xe = torch.einsum("gtxc,gtd->gxcd", dispatch.to(x.dtype), xt)
-    hg = torch.einsum("gxcd,xdf->gxcf", xe, p["wg"])
-    hu = torch.einsum("gxcd,xdf->gxcf", xe, p["wi"])
-    ye = torch.einsum("gxcf,xfd->gxcd", _act(hg, act) * hu, p["wo"])
-    out = torch.einsum("gtxc,gxcd->gtd", combine.to(x.dtype), ye)
-    out = out.reshape(b, s, d)
+    xe = cm.einsum("gtxc,gtd->gxcd", dispatch.to(x.dtype), xt)
+    hg = cm.einsum("gxcd,xdf->gxcf", xe, p["wg"])
+    hu = cm.einsum("gxcd,xdf->gxcf", xe, p["wi"])
+    ye = cm.einsum("gxcf,xfd->gxcd", _act(hg, act) * hu, p["wo"])
+    out = cm.einsum("gtxc,gxcd->gtd", combine.to(x.dtype), ye)
+    # the gradient comes back as the groups' layout before the reshape
+    # splits it into groups again
+    out = cm.grad_as_input(out.reshape(b, s, d))
 
     if mo.shared_experts:
         out = out + cm.mlp_apply(p["shared"], x, act)

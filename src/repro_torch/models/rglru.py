@@ -54,7 +54,7 @@ def rglru_init(gen, cfg: ModelConfig, device, lead: tuple[int, ...] = ()):
 
 def _block_linear(w, b, x):
     """Block-diagonal linear: x (B,S,NB,BD) @ w (NB,BD,BD), plus b."""
-    y = torch.einsum("bsnd,nde->bsne", x, w)
+    y = cm.einsum("bsnd,nde->bsne", x, w)
     return y + b.reshape(1, 1, w.shape[0], -1).to(y.dtype)
 
 
@@ -102,9 +102,11 @@ def linear_scan(a, b):
 def rglru_seq(p, x, cfg: ModelConfig, conv_state=None, h0=None):
     """Full-sequence recurrent block.  x: (B,S,D) -> (y, (h_last,
     conv_state))."""
-    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
-    xr, conv_state = _causal_conv(x @ p["w_x"], p["conv_w"], p["conv_b"],
-                                  conv_state)
+    # the scan runs over whole sequences (channels over "model")
+    x = cm.batch_only(x)
+    gate = F.gelu(cm.matmul(x, p["w_gate"]), approximate="tanh")
+    xr, conv_state = _causal_conv(cm.matmul(x, p["w_x"]), p["conv_w"],
+                                  p["conv_b"], conv_state)
     a, bterm = _gates(p, xr, cfg)
     if h0 is not None:
         # fold the carried state into the first step: b_0 += a_0 * h0
@@ -112,17 +114,17 @@ def rglru_seq(p, x, cfg: ModelConfig, conv_state=None, h0=None):
                            bterm[:, 1:]], dim=1)
     h = linear_scan(a, bterm)
     y = h.to(x.dtype) * gate
-    return y @ p["w_out"], (h[:, -1], conv_state)
+    return cm.matmul(y, p["w_out"]), (h[:, -1], conv_state)
 
 
 def rglru_step(p, x, cfg: ModelConfig, state):
     """Single-token decode.  x: (B,1,D); state = (h (B,Dr) f32, conv
     (B,W-1,Dr))."""
     h_prev, conv_state = state
-    gate = F.gelu(x @ p["w_gate"], approximate="tanh")
-    xr, conv_state = _causal_conv(x @ p["w_x"], p["conv_w"], p["conv_b"],
-                                  conv_state)
+    gate = F.gelu(cm.matmul(x, p["w_gate"]), approximate="tanh")
+    xr, conv_state = _causal_conv(cm.matmul(x, p["w_x"]), p["conv_w"],
+                                  p["conv_b"], conv_state)
     a, bterm = _gates(p, xr, cfg)
     h = a[:, 0] * h_prev + bterm[:, 0]                          # (B,Dr)
     y = h[:, None].to(x.dtype) * gate
-    return y @ p["w_out"], (h, conv_state)
+    return cm.matmul(y, p["w_out"]), (h, conv_state)

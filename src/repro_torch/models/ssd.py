@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import common as cm
 
 
@@ -71,14 +72,14 @@ def _project(p, x, cfg: ModelConfig, conv_state):
     d_in = s.expand * cfg.d_model
     nheads = d_in // s.head_dim
     cs = conv_state or {}
-    z = x @ p["w_z"]
-    xs, cx = _causal_conv(x @ p["w_x"], p["conv_x"], p["conv_x_b"],
+    z = cm.matmul(x, p["w_z"])
+    xs, cx = _causal_conv(cm.matmul(x, p["w_x"]), p["conv_x"], p["conv_x_b"],
                           cs.get("x"))
-    bmat, cb = _causal_conv(x @ p["w_b"], p["conv_b"], p["conv_b_b"],
+    bmat, cb = _causal_conv(cm.matmul(x, p["w_b"]), p["conv_b"], p["conv_b_b"],
                             cs.get("b"))
-    cmat, cc = _causal_conv(x @ p["w_c"], p["conv_c"], p["conv_c_b"],
+    cmat, cc = _causal_conv(cm.matmul(x, p["w_c"]), p["conv_c"], p["conv_c_b"],
                             cs.get("c"))
-    dt = x @ p["w_dt"]
+    dt = cm.matmul(x, p["w_dt"])
     bsz, slen = x.shape[:2]
     xh = xs.reshape(bsz, slen, nheads, s.head_dim)
     return z, xh, bmat, cmat, dt, {"x": cx, "b": cb, "c": cc}
@@ -87,7 +88,7 @@ def _project(p, x, cfg: ModelConfig, conv_state):
 def _gated_out(p, y, z, cfg: ModelConfig):
     """Gated RMSNorm, then the output projection."""
     y = cm.rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    return cm.matmul(y, p["out_proj"])
 
 
 def ssd_seq(p, x, cfg: ModelConfig, conv_state=None, h0=None):
@@ -96,6 +97,8 @@ def ssd_seq(p, x, cfg: ModelConfig, conv_state=None, h0=None):
     steps only decay the carried state, so the outputs of the real
     positions are exact (callers that keep the state use whole chunks)."""
     s = cfg.ssm
+    # the chunked scan runs over whole sequences (heads over "model")
+    x = cm.batch_only(x)
     bsz, slen0, _ = x.shape
     q = min(s.chunk, slen0)
     pad = (-slen0) % q
@@ -119,30 +122,48 @@ def ssd_seq(p, x, cfg: ModelConfig, conv_state=None, h0=None):
     xc = xdt.reshape(bsz, nc, q, nheads, hdim)
     bc = bmat.reshape(bsz, nc, q, s.d_state)
     cc = cmat.reshape(bsz, nc, q, s.d_state)
-    cums = torch.cumsum(dac, dim=2)                             # (B,C,Q,H)
+    cums = cm.local_apply(lambda t: torch.cumsum(t, dim=2), dac, 2)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
 
-    h = h0 if h0 is not None else torch.zeros(
+    # DTensors: a zero carried state is left out (its contribution is 0)
+    # rather than made whole on every rank, and each chunk's gradient of
+    # the model-replicated B and C is reduced where the chunk takes them,
+    # so the projections' gradients arrive alike whatever the chunk count
+    dist = is_dtensor(x)
+    h = h0 if h0 is not None or dist else torch.zeros(
         (bsz, nheads, s.d_state, hdim), dtype=torch.float32, device=x.device)
     ys = []
-    for c in range(nc):
-        cums_c, xc_c, bc_c, cc_c = cums[:, c], xc[:, c], bc[:, c], cc[:, c]
+    # one unbind a tensor: its backward stacks the chunks' gradients once
+    # (indexing each chunk out would add a whole-size gradient per chunk,
+    # bytes quadratic in the chunk count)
+    for cums_c, xc_c, bc_c, cc_c in zip(*(t.unbind(1)
+                                          for t in (cums, xc, bc, cc))):
+        if dist:
+            bc_c, cc_c = cm.grad_as_input(bc_c), cm.grad_as_input(cc_c)
         # intra-chunk decay L[q1,q2] = exp(cums[q1] - cums[q2]), q1 >= q2;
         # masked before the exp (above the diagonal it overflows)
         seg = cums_c[:, :, None, :] - cums_c[:, None, :, :]     # (B,Q,Q,H)
         l_mask = torch.exp(torch.where(tri[None, :, :, None], seg, -1e30))
-        scores = torch.einsum("bqn,bkn->bqk", cc_c, bc_c)       # (B,Q,Q)
-        y_diag = torch.einsum("bqk,bqkh,bkhp->bqhp", scores, l_mask, xc_c)
-        # the carried state's contribution
-        decay_in = torch.exp(cums_c)                            # (B,Q,H)
-        y_off = torch.einsum("bqn,bhnp,bqh->bqhp", cc_c, h, decay_in)
+        scores = cm.einsum("bqn,bkn->bqk", cc_c, bc_c)       # (B,Q,Q)
+        y_diag = cm.einsum("bqk,bqkh,bkhp->bqhp", scores, l_mask, xc_c)
         # h' = decay_all * h + sum_k B_k (x) x_k decayed to the chunk's end
         decay_all = torch.exp(cums_c[:, -1])                    # (B,H)
         decay_out = torch.exp(cums_c[:, -1:, :] - cums_c)       # (B,Q,H)
-        states = torch.einsum("bkn,bkh,bkhp->bhnp", bc_c, decay_out, xc_c)
+        states = cm.einsum("bkn,bkh,bkhp->bhnp", bc_c, decay_out, xc_c)
+        if h is None:
+            ys.append(y_diag)
+            h = states
+            continue
+        # the carried state's contribution
+        decay_in = torch.exp(cums_c)                            # (B,Q,H)
+        y_off = cm.einsum("bqn,bhnp,bqh->bqhp", cc_c, h, decay_in)
         h = decay_all[:, :, None, None] * h + states
         ys.append(y_diag + y_off)
-    y = torch.stack(ys, dim=1).reshape(bsz, slen, nheads, hdim)
+    # (the gradient comes back laid out as the chunks' output, whatever
+    # layout the gated norm's backward gave it, before it is split into
+    # chunks again)
+    y = cm.grad_as_input(torch.stack(ys, dim=1).reshape(bsz, slen, nheads,
+                                                         hdim))
     y = y + p["d_skip"][:, None] * xh                           # D skip
     y = y.reshape(bsz, slen, d_in).to(x.dtype)
     out = _gated_out(p, y, z, cfg)
@@ -162,8 +183,8 @@ def ssd_step(p, x, cfg: ModelConfig, state):
     cv = cmat[:, 0].float()
     dtv = F.softplus(dt[:, 0].float() + p["dt_bias"])           # (B,H)
     decay = torch.exp(dtv * -torch.exp(p["a_log"]))             # (B,H)
-    h = decay[:, :, None, None] * h_prev + torch.einsum(
+    h = decay[:, :, None, None] * h_prev + cm.einsum(
         "bn,bh,bhp->bhnp", bv, dtv, xh)
-    y = torch.einsum("bn,bhnp->bhp", cv, h) + p["d_skip"][:, None] * xh
+    y = cm.einsum("bn,bhnp->bhp", cv, h) + p["d_skip"][:, None] * xh
     y = y.reshape(-1, 1, d_in).to(x.dtype)
     return _gated_out(p, y, z, cfg), (h, conv_state)
