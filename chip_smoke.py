@@ -160,7 +160,13 @@ Phases (any failure raises, so the script exits non-zero):
     within the reference's relative 0.06; past it, the same run with the
     weights cast to f32 layer by layer must hold it (else a fault), and
     the bf16 logits are held to the f32 run's within 0.25 at the
-    positions routed alike.  RecurrentGemma-9B's full 38 layers overflow
+    positions routed alike.  After each of the six, one more decode from
+    the same cache with ``decode_carry_cache`` and
+    ``assume_uniform_decode`` (the positions are uniform there), under the
+    same routing: its logits bit for bit the functional decode's and the
+    cache it returns the caller's tensors (same storage), both decode
+    walls and peaks of device memory printed beside the card's name and
+    power limit.  RecurrentGemma-9B's full 38 layers overflow
     in the reference's own model (ROADMAP C0g): reported, and the run is
     held again on its first 8 layers.  Then the ten reduced configs'
     forward, prefill and decode, card against CPU from the same weights,
@@ -192,9 +198,14 @@ Phases (any failure raises, so the script exits non-zero):
     ``train_step(..., shard=rules.act_shard())`` with ``vocab_parallel``
     off and on, each step's loss and grad norm within TRAIN_LOSS_ERR and
     TRAIN_GNORM_REL of the train phase's first ``minimal`` step (the
-    exact differences and whether they are 0 printed); ``launch.train``
-    on the mesh against the run without one (reduced Qwen2.5-3B,
-    ``MP_TRAIN_STEPS`` steps, the train phase's bounds);
+    exact differences and whether they are 0 printed); the same step
+    over microbatches of one row, and with int8 error-feedback
+    compression, each on the mesh against the same step without one
+    (loss, grad norm and the parameters' update within the train phase's
+    bounds, the exact differences printed); ``launch.train`` on the mesh
+    against the run without one, without and with ``compress_grads``
+    (reduced Qwen2.5-3B, ``MP_TRAIN_STEPS`` steps, the train phase's
+    bounds);
     ``quantized_psum`` over the group on the card against the plain
     requantization, bit for bit.  No kernel launches; a ``fabric`` /
     ``model_parallel`` JSON line.
@@ -2494,15 +2505,18 @@ def prefix(batch, n):
 
 
 def stack_run(cfg, params, batch, dev, cache_len, keep_logits=False,
-              pin=None):
+              pin=None, carry=False):
     """``forward_train`` on the whole batch, then ``prefill`` on all but
     the last token and one ``decode_step``; each timed (host clock ending
     in a synchronize).  Prefill and decode take the forward's MoE routing
     (``routing``), so that a near tie rounded apart cannot break the
     invariant; with ``pin`` (another run's forward routing) the forward
-    takes that too.  Returns the logits (all of the forward's with
-    ``keep_logits``), the relative error of the decoded logits against the
-    forward's last, the routings and the walls."""
+    takes that too.  With ``carry`` (on the card), a second decode from
+    the same cache carries it in place at the uniform position
+    (``carried_decode``), and each decode's peak device memory is taken.
+    Returns the logits (all of the forward's with ``keep_logits``), the
+    relative error of the decoded logits against the forward's last, the
+    routings and the walls."""
     from repro_torch.models.lm import LM
     lm = LM(cfg)
     b, s = batch["tokens"].shape
@@ -2523,6 +2537,9 @@ def stack_run(cfg, params, batch, dev, cache_len, keep_logits=False,
                                             cache_len=cache_len)
         sync(dev)
         out["prefill_s"] = time.perf_counter() - t0
+        if carry:
+            out["peak_before_decode"] = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         with routing(out["fwd"].at(slice(s - 1, s))) as out["dec"]:
             out["got"], _ = lm.decode_step(
@@ -2530,10 +2547,54 @@ def stack_run(cfg, params, batch, dev, cache_len, keep_logits=False,
                 torch.full((b,), s - 1, dtype=torch.int32, device=dev))
         sync(dev)
         out["decode_s"] = time.perf_counter() - t0
+        if carry:
+            out["decode_peak"] = torch.cuda.max_memory_allocated(dev)
+            out["carry"] = carried_decode(cfg, params, cache, batch, dev,
+                                          out)
     got, want = out["got"].float(), out["want"]
     out["rel"] = float((got - want).abs().max()) / max(
         float(want.abs().max()), 1e-6)
     return out
+
+
+def same_bits(a, b) -> bool:
+    """``a`` and ``b`` of one dtype and shape with the same bytes (NaNs
+    included)."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def carried_decode(cfg, params, cache, batch, dev, out) -> dict:
+    """The decode of ``stack_run`` again from the same cache with
+    ``decode_carry_cache`` and ``assume_uniform_decode`` (every request at
+    the same position), under the same routing: its logits must be the
+    functional decode's bit for bit (the same arithmetic) and the cache it
+    returns the tensors passed in, written in place.  Its wall and its
+    peak device memory (the statistics reset before it)."""
+    from repro_torch.models.lm import LM
+    from repro_torch.training.tree import leaves
+    b, s = batch["tokens"].shape
+    lm = LM(cfg, decode_carry_cache=True, assume_uniform_decode=True)
+    before = leaves(cache)
+    ptrs = [t.data_ptr() for t in before]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with routing(out["fwd"].at(slice(s - 1, s))):
+        got, back = lm.decode_step(
+            params, cache, batch["tokens"][:, -1],
+            torch.full((b,), s - 1, dtype=torch.int32, device=dev))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    back = leaves(back)
+    row = dict(decode_s=wall, peak_bytes=torch.cuda.max_memory_allocated(dev),
+               bit_identical=same_bits(got, out["got"]),
+               same_storage=(len(back) == len(before) and all(
+                   t is u and t.data_ptr() == p
+                   for t, u, p in zip(back, before, ptrs))),
+               cache_bytes=sum(t.numel() * t.element_size() for t in back))
+    if not (row["bit_identical"] and row["same_storage"]):
+        raise AssertionError(f"lm {cfg.name}: carried decode {row}")
+    return row
 
 
 def apart_line(r) -> str:
@@ -2585,6 +2646,7 @@ def lm_stack(name, layers, params, dev, gen) -> dict:
     (then the bf16 logits are held to the f32 run's within
     SERVE_LOGIT_ERR, under the bf16 forward's routing)."""
     from repro_torch import configs
+    from repro_torch.device import card_line
     from repro_torch.launch.serve import init_params
     full = configs.get(name)
     cfg = nodrop(full if layers is None
@@ -2602,14 +2664,18 @@ def lm_stack(name, layers, params, dev, gen) -> dict:
               f"{time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated(dev)} B allocated")
     batch = lm_batch(cfg, LM_BATCH, LM_PREFILL + 1, dev, gen)
-    r = stack_run(cfg, params, batch, dev, LM_CACHE_LEN, keep_logits=True)
-    peak = torch.cuda.max_memory_allocated(dev)
+    r = stack_run(cfg, params, batch, dev, LM_CACHE_LEN, keep_logits=True,
+                  carry=True)
+    car = r["carry"]
+    peak = max(r["peak_before_decode"], r["decode_peak"], car["peak_bytes"])
     b, s = LM_BATCH, LM_PREFILL
     row = dict(name=name, depth=depth, rel=r["rel"], bound=SELF_REL,
                forward_s=r["forward_s"], prefill_s=r["prefill_s"],
                decode_s=r["decode_s"],
                prefill_tok_s=b * s / r["prefill_s"],
                decode_tok_s=b / r["decode_s"], peak_bytes=peak,
+               decode_peak_bytes=r["decode_peak"], carried=car,
+               card=card_line(dev),
                routed_apart=[r[k].apart()[0] for k in ("pre", "dec")])
     print(f"lm {name} ({depth}, batch {b}, prefill {s} + 1 decode): "
           f"forward {r['forward_s']:.3f} s, prefill {r['prefill_s']:.3f} s "
@@ -2617,6 +2683,15 @@ def lm_stack(name, layers, params, dev, gen) -> dict:
           f"({row['decode_tok_s']:.1f} tok/s), peak device memory {peak} B; "
           f"prefill + decode vs forward: relative error {r['rel']:.6f} "
           f"(bound {SELF_REL}){apart_line(r)}")
+    print(f"lm {name}: decode again from the same cache with "
+          f"decode_carry_cache and assume_uniform_decode, on "
+          f"{row['card']}: logits bit for bit the functional decode's: "
+          f"{car['bit_identical']}; the caller's {car['cache_bytes']} B of "
+          f"cache written in place and returned (same tensors and "
+          f"storage): {car['same_storage']}; decode wall {car['decode_s']:.4f}"
+          f" s (functional {r['decode_s']:.4f} s), peak device memory "
+          f"{car['peak_bytes']} B (functional {r['decode_peak']} B, "
+          f"{r['decode_peak'] - car['peak_bytes']} B more)")
     finite = all(bool(torch.isfinite(v).all())
                  for v in (r["got"], r["want"], r["last"]))
     if not finite and layers is None and name in OVERFLOWS_IN_REFERENCE:
@@ -2737,6 +2812,22 @@ def lm_phase(dev):
 # train phase: the training slice on the card
 # --------------------------------------------------------------------------
 
+def update_gap(start, want, got, dev) -> float:
+    """||(got - p0) - (want - p0)|| / ||want - p0|| over every parameter,
+    summed on ``dev`` leaf by leaf: the gap of two runs' updates from
+    their common start p0, relative to ``want``'s."""
+    from repro_torch.training.tree import items
+    want, got = dict(items(want)), dict(items(got))
+    gap = norm = 0.0
+    for k, p0 in items(start):
+        p0 = p0.to(dev).float()
+        step_want = want[k].to(dev).float() - p0
+        step_got = got[k].to(dev).float() - p0
+        gap += float((step_got - step_want).square().sum())
+        norm += float(step_want.square().sum())
+    return math.sqrt(gap / norm)
+
+
 def train_gaps(name, want, got) -> tuple[float, float, float]:
     """Two ``launch.train`` runs of the reduced config ``name`` with its
     defaults (``want`` the reference run): the largest loss gap, the last
@@ -2748,20 +2839,12 @@ def train_gaps(name, want, got) -> tuple[float, float, float]:
     from repro_torch.configs.reduced import reduced
     from repro_torch.launch.train import RunConfig
     from repro_torch.models.lm import LM
-    from repro_torch.training.tree import items
     err = max(abs(a - b) for a, b in zip(want["losses"], got["losses"]))
     g0, g1 = want["grad_norms"][-1], got["grad_norms"][-1]
-    start = dict(items(LM(reduced(configs.get(name))).init_params(
-        torch.Generator().manual_seed(RunConfig(arch=name).seed))))
-    p_want = dict(items(want["state"]["params"]))
-    p_got = dict(items(got["state"]["params"]))
-    gap = norm = 0.0
-    for k, p0 in start.items():
-        step_want = p_want[k].cpu().float() - p0.float()
-        step_got = p_got[k].cpu().float() - p0.float()
-        gap += float((step_got - step_want).square().sum())
-        norm += float(step_want.square().sum())
-    return err, abs(g1 - g0) / g0, math.sqrt(gap / norm)
+    start = LM(reduced(configs.get(name))).init_params(
+        torch.Generator().manual_seed(RunConfig(arch=name).seed))
+    return err, abs(g1 - g0) / g0, update_gap(
+        start, want["state"]["params"], got["state"]["params"], "cpu")
 
 
 def train_card_vs_cpu(name, dev) -> dict:
@@ -2992,50 +3075,110 @@ def _full(x):
     return x.full_tensor() if isinstance(x, DTensor) else x
 
 
-def mesh_full_step(cfg, batch, dev, mesh, vocab_parallel: bool) -> dict:
-    """One AdamW step of the full config on the (1, 1) mesh: the train
-    phase's seeded weights drawn anew on the card, state and batch laid out
-    by ``Rules``, ``train_step`` with ``rules.act_shard()``.  The wall
-    includes DTensor's first-call sharding propagation."""
+def mesh_full_step(cfg, start, batch, dev, mesh, vocab_parallel=False,
+                   microbatch=0, compress=False, keep=False) -> dict:
+    """One AdamW step of the full config from the weights ``start`` (the
+    train phase's seeded weights, held on the host): on the (1, 1) mesh,
+    state and batch laid out by ``Rules`` and ``train_step`` with
+    ``rules.act_shard()``, or with ``mesh`` None on plain tensors;
+    optionally over microbatches and with int8 error-feedback compression
+    (its error state laid out as the parameters).  The wall includes
+    DTensor's first-call sharding propagation.  With ``keep``, the updated
+    parameters come back on the host."""
     from repro_torch.distributed.sharding import Rules, distribute
-    from repro_torch.launch.serve import init_params
-    from repro_torch.models.lm import LM
+    from repro_torch.models.lm import LM, _identity
+    from repro_torch.training import compression
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.training.train_step import TrainConfig, train_step
+    from repro_torch.training.tree import tree_map
 
-    rules = Rules(cfg, mesh)
-    params = init_params(cfg, dev)
+    params = tree_map(lambda t: t.to(dev, copy=True), start)
     state = {"params": params, "opt": init_opt_state(params)}
-    state = distribute(state, rules.state_spec(state), mesh)
-    batch = distribute(batch, rules.batch_spec(batch), mesh)
+    shard = _identity
+    if mesh is not None:
+        rules = Rules(cfg, mesh)
+        state = distribute(state, rules.state_spec(state), mesh)
+        batch = distribute(batch, rules.batch_spec(batch), mesh)
+        shard = rules.act_shard()
     del params
+    transform = None
+    if compress:
+        err = compression.init_error_state(state["params"])
+
+        def transform(grads):
+            return compression.compress_decompress(grads, err)[0]
     tcfg = TrainConfig(adamw=AdamWConfig(lr=3e-4, warmup_steps=1,
-                                         total_steps=100))
+                                         total_steps=100),
+                       microbatch=microbatch)
     sync(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     state, metrics = train_step(LM(cfg, vocab_parallel=vocab_parallel),
-                                tcfg, state, batch, shard=rules.act_shard())
+                                tcfg, state, batch, shard=shard,
+                                grad_transform=transform)
     loss = _full(metrics["loss"]).item()
     sync(dev)
     wall = time.perf_counter() - t0
-    out = dict(vocab_parallel=vocab_parallel, wall_s=wall, loss=loss,
+    out = dict(vocab_parallel=vocab_parallel, microbatch=microbatch,
+               compress=compress, wall_s=wall, loss=loss,
                grad_norm=_full(metrics["grad_norm"]).item(),
                peak_bytes=torch.cuda.max_memory_allocated(dev))
-    del state, batch, metrics
+    if keep:
+        out["params"] = tree_map(lambda t: _full(t).cpu(), state["params"])
+    del state, batch, metrics, transform
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def mesh_launch_train(dev, mesh) -> dict:
+def mesh_options(cfg, start, batch_at, dev, mesh, card) -> list:
+    """The full-width step over microbatches of one row, and the step with
+    int8 compression, each on the (1, 1) mesh against the same step
+    without a mesh, within the train phase's bounds; the exact
+    differences printed."""
+    rows = []
+    b, s = FULL_TRAIN_SHAPE
+    for label, kw in (("microbatch 1", dict(microbatch=1)),
+                      ("int8 compression", dict(compress=True))):
+        plain = mesh_full_step(cfg, start, batch_at(), dev, None, keep=True,
+                               **kw)
+        meshed = mesh_full_step(cfg, start, batch_at(), dev, mesh, keep=True,
+                                **kw)
+        dl = meshed["loss"] - plain["loss"]
+        dg = meshed["grad_norm"] - plain["grad_norm"]
+        upd = update_gap(start, plain.pop("params"), meshed.pop("params"),
+                         dev)
+        r = dict(option=label, mesh=meshed, plain=plain, loss_diff=dl,
+                 grad_norm_diff=dg, update_rel=upd,
+                 bit_identical=dl == 0.0 and dg == 0.0 and upd == 0.0)
+        rows.append(r)
+        print(f"model-parallel full {cfg.name} (36 layers), {label}, "
+              f"{b} x {s} tokens, on {card}: on the (1, 1) NCCL mesh step "
+              f"wall {meshed['wall_s']:.4f} s (first call), loss "
+              f"{meshed['loss']:.6f}, grad_norm {meshed['grad_norm']:.6f}, "
+              f"peak device memory {meshed['peak_bytes']} B; without a mesh "
+              f"{plain['wall_s']:.4f} s, loss {plain['loss']:.6f}, "
+              f"grad_norm {plain['grad_norm']:.6f}, peak "
+              f"{plain['peak_bytes']} B; loss difference {dl!r} (bound "
+              f"{TRAIN_LOSS_ERR}), grad_norm difference {dg!r} (bound "
+              f"{TRAIN_GNORM_REL} relative), update relative {upd!r} "
+              f"(bound {TRAIN_UPDATE_REL}); all 0: {r['bit_identical']}")
+        if (not abs(dl) <= TRAIN_LOSS_ERR
+                or not abs(dg) <= TRAIN_GNORM_REL * abs(plain["grad_norm"])
+                or not upd <= TRAIN_UPDATE_REL):
+            raise AssertionError(f"model-parallel step, {label}: {r}")
+    return rows
+
+
+def mesh_launch_train(dev, mesh, compress=False) -> dict:
     """``launch.train(run, mesh)`` on reduced Qwen2.5-3B against
-    ``launch.train(run)`` on the card, held by the train phase's bounds."""
+    ``launch.train(run)`` on the card, held by the train phase's bounds;
+    with ``compress``, both under ``compress_grads``."""
     from repro_torch.launch.train import RunConfig, train
     from repro_torch.training.tree import tree_map
 
     run = RunConfig(arch="qwen2.5-3b", steps=MP_TRAIN_STEPS, log_every=0,
-                    device=str(dev))
+                    device=str(dev), compress_grads=compress)
     plain = train(run)
     t0 = time.perf_counter()
     meshed = train(run, mesh=mesh)
@@ -3043,7 +3186,8 @@ def mesh_launch_train(dev, mesh) -> dict:
     wall = time.perf_counter() - t0
     meshed["state"] = {"params": tree_map(_full, meshed["state"]["params"])}
     err, gnorm_rel, update_rel = train_gaps("qwen2.5-3b", plain, meshed)
-    print(f"model-parallel launch.train reduced qwen2.5-3b, "
+    print(f"model-parallel launch.train reduced qwen2.5-3b"
+          f"{', compress_grads' if compress else ''}, "
           f"{MP_TRAIN_STEPS} steps on the (1, 1) mesh: {wall:.3f} s; "
           f"losses {[round(x, 6) for x in meshed['losses']]} vs without a "
           f"mesh {[round(x, 6) for x in plain['losses']]}: max |dloss| "
@@ -3054,7 +3198,8 @@ def mesh_launch_train(dev, mesh) -> dict:
             or not update_rel <= TRAIN_UPDATE_REL):
         raise AssertionError(f"model-parallel launch.train: {err}, "
                              f"{gnorm_rel}, {update_rel}")
-    return dict(wall_s=wall, max_abs_err=err, grad_norm_rel=gnorm_rel,
+    return dict(compress=compress, wall_s=wall, max_abs_err=err,
+                grad_norm_rel=gnorm_rel,
                 update_rel=update_rel, losses=meshed["losses"],
                 plain_losses=plain["losses"])
 
@@ -3091,7 +3236,11 @@ def model_parallel_phase(dev, train_rows) -> dict:
     once on, each step's loss and grad norm held to the train phase's
     first ``minimal`` step within TRAIN_LOSS_ERR and TRAIN_GNORM_REL
     (bit-identity expected at world size 1, and reported); then
-    ``launch.train`` on the mesh and ``quantized_psum``.  No kernel of the
+    the full-width step over microbatches of one row and the step with
+    int8 compression, each on the mesh against the same step without one
+    (``mesh_options``); ``launch.train`` on the mesh without and with
+    ``compress_grads``, and ``quantized_psum``.  The weights are drawn on
+    the card once and held on the host for every step.  No kernel of the
     port lies on the path: every launch count must stay 0."""
     import tempfile
 
@@ -3101,13 +3250,22 @@ def model_parallel_phase(dev, train_rows) -> dict:
     from repro_torch.device import card_line
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import init_params
     from repro_torch.training.data import DataConfig, SyntheticStream
+    from repro_torch.training.tree import tree_map
 
     card = card_line(dev)
     want = train_rows["full"][0]["steps"][0]
     cfg = configs.get("qwen2.5-3b")
     b, s = FULL_TRAIN_SHAPE
     rows = {"card": card}
+    start = tree_map(lambda t: t.cpu(), init_params(cfg, dev))
+    torch.cuda.empty_cache()
+
+    def batch_at():
+        return SyntheticStream(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=s, global_batch=b,
+                                          seed=SEED), device=dev).batch_at(0)
     reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_") as d:
         dist.init_process_group("nccl", init_method=f"file://{d}/store",
@@ -3116,11 +3274,7 @@ def model_parallel_phase(dev, train_rows) -> dict:
             mesh = make_host_mesh(model=1, data=1, device_type="cuda")
             steps = []
             for vp in (False, True):
-                batch = SyntheticStream(
-                    DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
-                               global_batch=b, seed=SEED),
-                    device=dev).batch_at(0)
-                r = mesh_full_step(cfg, batch, dev, mesh, vp)
+                r = mesh_full_step(cfg, start, batch_at(), dev, mesh, vp)
                 dl = r["loss"] - want["loss"]
                 dg = r["grad_norm"] - want["grad_norm"]
                 r.update(loss_diff=dl, grad_norm_diff=dg,
@@ -3142,7 +3296,11 @@ def model_parallel_phase(dev, train_rows) -> dict:
                     raise AssertionError(f"model-parallel step "
                                          f"vocab_parallel={vp}: {r}")
             rows["full"] = steps
+            rows["options"] = mesh_options(cfg, start, batch_at, dev, mesh,
+                                           card)
             rows["launch_train"] = mesh_launch_train(dev, mesh)
+            rows["launch_train_compress"] = mesh_launch_train(
+                dev, mesh, compress=True)
             rows["quantized_psum"] = mesh_psum(dev)
         finally:
             dist.destroy_process_group()

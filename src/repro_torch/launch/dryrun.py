@@ -545,8 +545,8 @@ def _print_cell(rec: dict) -> None:
 
 def optimized_overrides(arch: str, shape_name: str) -> tuple[dict, dict]:
     """The reference's per-(arch x shape) configuration (its §Perf
-    iteration log chose these), without ``assume_uniform_decode``, which
-    only steers XLA's lowering and which the port's LM does not have."""
+    iteration log chose these), whole.  Like the reference's, it leaves
+    ``decode_carry_cache`` off."""
     shape = SHAPES[shape_name]
     cfg = configs.get(arch)
     lm_kw: dict = {}
@@ -557,9 +557,12 @@ def optimized_overrides(arch: str, shape_name: str) -> tuple[dict, dict]:
         # data-axis compute slicing for the expert products
         if cfg.moe is None:
             rules_kw["fsdp"] = False
-        # a head-sharded cache makes the new token's writes shard-local
+        # uniform-position slot writes go with a head-sharded cache, which
+        # makes them shard-local (a sequence-sharded cache would make
+        # every rank test the slot against its slice of the ring)
         if (cfg.mla is None and cfg.num_kv_heads
                 and cfg.num_kv_heads % 16 == 0):
+            lm_kw["assume_uniform_decode"] = True
             rules_kw["head_sharded_cache"] = True
     else:
         lm_kw["vocab_parallel"] = True

@@ -31,7 +31,9 @@ out by ``rules.state_spec`` and each batch by ``rules.batch_spec``, the
 model's ``shard`` hook is ``rules.act_shard()``, and a resume restores
 the checkpoint under the current rules' layout, whatever mesh saved it.
 Each rank saves as host ``rank`` (only rank 0 writes; the checkpoint
-holds whole tensors).  Gradient compression takes plain tensors only.
+holds whole tensors).  Under ``--compress-grads`` the error state is laid
+out as the parameters and follows them across steps; as in the reference,
+no checkpoint holds it (a resumed run starts it from zeros).
 """
 from __future__ import annotations
 
@@ -111,9 +113,6 @@ def train(run: RunConfig, mesh=None, rules=None) -> dict:
     lm = LM(cfg)
     if rules is None and mesh is not None:
         rules = Rules(cfg, mesh)
-    if rules is not None and run.compress_grads:
-        raise ValueError("--compress-grads takes plain tensors; train "
-                         "without a mesh to compress")
     rank = 0 if rules is None else torch.distributed.get_rank()
     shard = rules.act_shard() if rules is not None else _identity
     tcfg = TrainConfig(adamw=AdamWConfig(lr=run.lr, total_steps=run.steps,

@@ -34,7 +34,9 @@ DTYPE = torch.bfloat16
 
 # elements drawn in f32 at once: a larger leaf is drawn slice by slice of
 # its leading axis, so the f32 temporary stays one slice of it (a stacked
-# Mixtral ``wi`` is 16 x 8 x 4096 x 14336)
+# Mixtral ``wi`` is 16 x 8 x 4096 x 14336); slices that fit are drawn one
+# ``randn`` each into a buffer of up to this size and scaled and cast a
+# buffer at a time (a vocabulary table has one slice a row)
 DRAW_CHUNK = 1 << 26
 
 
@@ -45,8 +47,18 @@ def ninit(gen: torch.Generator | None, shape, scale, device, dtype=DTYPE):
         return torch.empty(shape, dtype=dtype, device=device)
     if math.prod(shape) > DRAW_CHUNK and len(shape) > 1:
         out = torch.empty(shape, dtype=dtype, device=device)
-        for i in range(shape[0]):
-            out[i] = ninit(gen, shape[1:], scale, device, dtype)
+        rows = DRAW_CHUNK // math.prod(shape[1:])
+        if not rows:
+            for i in range(shape[0]):
+                out[i] = ninit(gen, shape[1:], scale, device, dtype)
+            return out
+        buf = torch.empty((min(rows, shape[0]),) + shape[1:],
+                          dtype=torch.float32, device=device)
+        for i in range(0, shape[0], rows):
+            n = min(rows, shape[0] - i)
+            for j in range(n):  # the draws of a slice at a time
+                torch.randn(shape[1:], generator=gen, out=buf[j])
+            out[i:i + n] = (buf[:n] * scale).to(dtype)
         return out
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (x * scale).to(dtype)
@@ -278,12 +290,13 @@ def grad_as_input(x):
     return _GradAsInput.apply(x) if is_dtensor(x) else x
 
 
-def local_apply(fn, x, dim: int):
+def local_apply(fn, x, dim: int | None):
     """``fn(x)`` for an ``fn`` that works along ``dim`` alone (a roll, a
-    pad, a cumulative sum); a DTensor is first gathered on the mesh dims
-    that shard ``dim`` and ``fn`` then runs on each rank's shard, as DTensor
-    has no rule for some of these operations in some torch versions.  The
-    result keeps the input's layout."""
+    pad, a cumulative sum), or element by element (``dim=None``); a
+    DTensor is first gathered on the mesh dims that shard ``dim`` (and
+    reduced where it is partial) and ``fn`` then runs on each rank's shard,
+    as DTensor has no rule for some of these operations in some torch
+    versions.  The result keeps the input's layout."""
     from repro_torch.distributed.sharding import is_dtensor
     if not is_dtensor(x):
         return fn(x)

@@ -19,9 +19,14 @@ reference's tree: per segment, ``sub<i>`` leaves stacked on the layer
 axis, so ``convert.lm_params`` carries them across unchanged.  ``shard``
 is the hook through which a multi-device layer constrains layouts
 (``distributed.sharding.Rules.act_shard``; identity by default).  The
-reference's ``unroll``, ``decode_carry_cache`` and
-``assume_uniform_decode`` only steer XLA's lowering and give the same
-math, so they have no counterpart.  ``vocab_parallel`` takes the token
+reference's ``unroll`` only steers XLA's lowering and has no counterpart.
+``decode_carry_cache`` makes ``decode_step`` write the caller's stacked
+cache in place (each layer's new row into its view of the stack, each
+recurrent state into its slice) and return it, where the default makes
+a new cache: a ring write and a stack, two copies of the cache a token.
+``assume_uniform_decode`` writes every request's new row at the one
+slot ``positions[0] % ring``, one slice write along the ring.  Both give
+the default's numbers bit for bit.  ``vocab_parallel`` takes the token
 embeddings as a one-hot product with the table, keeps the logits
 vocab-sharded through the ``shard`` hook and picks each label's logit
 shard-locally (Megatron's vocab-parallel cross entropy).
@@ -151,6 +156,8 @@ class Ctx:
     cache_len: int = 0
     enc_out: Optional[torch.Tensor] = None  # audio: encoder output (B,Se,D)
     attn_blocks: Optional[tuple] = None     # (q_block, kv_block) override
+    uniform_pos: Optional[torch.Tensor] = None  # 0-d shared decode position
+    carry: bool = False                     # decode: write the cache in place
 
 
 def _prefill_cache_layout(arr, cache_len: int):
@@ -166,35 +173,73 @@ def _prefill_cache_layout(arr, cache_len: int):
         arr[:, -cache_len:], 1)
 
 
-def _ring_write(buf, new, lengths, shard: Shard):
-    """A new buffer with the new token's row at slot (lengths-1) % ring."""
-    idx = (lengths - 1) % buf.shape[1]
+def _ring_write(buf, new, lengths, shard: Shard, uniform_pos=None,
+                in_place: bool = False):
+    """The new token's row (``new``, (B, 1, ...)) at slot (lengths-1) %
+    ring: in a new buffer, or in ``buf`` itself with ``in_place``.  With
+    ``uniform_pos`` (a 0-d tensor: every request at that position) the row
+    goes to slot ``uniform_pos % ring`` for every request, one slice write
+    along the ring; the positions are not checked."""
+    ring = buf.shape[1]
+    if uniform_pos is not None:
+        idx = (uniform_pos % ring).reshape(1).long()
+        if is_dtensor(buf):
+            return shard(_slot_write_local(buf, new, idx, in_place),
+                         "cache_kv")
+        upd = new.to(buf.dtype)
+        out = (buf.index_copy_(1, idx, upd) if in_place
+               else buf.index_copy(1, idx, upd))
+        return shard(out, "cache_kv")
+    idx = (lengths - 1) % ring
     if is_dtensor(buf):
-        return shard(_ring_write_local(buf, new, idx), "cache_kv")
-    out = buf.index_put((torch.arange(new.shape[0], device=buf.device), idx),
-                        new[:, 0].to(buf.dtype))
+        return shard(_ring_write_local(buf, new, idx, in_place), "cache_kv")
+    rows = (torch.arange(new.shape[0], device=buf.device), idx)
+    row = new[:, 0].to(buf.dtype)
+    out = (buf.index_put_(rows, row) if in_place
+           else buf.index_put(rows, row))
     return shard(out, "cache_kv")
 
 
-def _ring_write_local(buf, new, idx):
+def _laid_out(t, mesh, want):
+    """``t`` (a DTensor, or a plain tensor every rank holds whole) as a
+    DTensor of placements ``want``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not is_dtensor(t):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, want)
+
+
+def _off_ring(buf) -> list:
+    """``buf``'s placements with the ring axis (1) replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [p if isinstance(p, Shard) and p.dim != 1 else Replicate()
+            for p in buf.placements]
+
+
+def _local_result(buf, out, in_place: bool):
+    """``buf`` when its shard was written in place, else a DTensor of
+    ``buf``'s layout over the new local shard ``out``."""
+    if in_place:
+        return buf
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(out, buf.device_mesh, buf.placements,
+                              run_check=False, shape=buf.shape,
+                              stride=buf.stride())
+
+
+def _ring_write_local(buf, new, idx, in_place: bool = False):
     """``_ring_write`` of a DTensor (B, T, ...) buffer in its own layout:
     ``new`` and ``idx`` are laid out as ``buf`` on every axis but the
     ring's (replicated there, so each rank holding a slice of the ring
     sees every row), and each rank writes the rows whose slot falls in its
     slice.  (DTensor's own ``index_put`` gathers the whole ring first.)"""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard
 
     mesh = buf.device_mesh
-    want = [p if isinstance(p, Shard) and p.dim != 1 else Replicate()
-            for p in buf.placements]
-    new = new.redistribute(mesh, want) if is_dtensor(new) else \
-        DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
-                           run_check=False).redistribute(mesh, want)
-    idx_want = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
-                for p in buf.placements]
-    idx = idx.redistribute(mesh, idx_want) if is_dtensor(idx) else \
-        DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim,
-                           run_check=False).redistribute(mesh, idx_want)
+    new = _laid_out(new, mesh, _off_ring(buf))
+    idx = _laid_out(idx, mesh, [p if isinstance(p, Shard) and p.dim == 0
+                                else Replicate() for p in buf.placements])
     local = buf.to_local()
     slot = idx.to_local() - cm.shard_offset(buf, 1)
     mine = (slot >= 0) & (slot < local.shape[1])
@@ -203,9 +248,50 @@ def _ring_write_local(buf, new, idx):
     row = torch.where(mine.view(-1, *[1] * (local.dim() - 2)),
                       new.to_local()[:, 0].to(local.dtype),
                       local[rows, slot])
-    out = local.index_put((rows, slot), row)
-    return DTensor.from_local(out, mesh, buf.placements, run_check=False,
-                              shape=buf.shape, stride=buf.stride())
+    out = (local.index_put_((rows, slot), row) if in_place
+           else local.index_put((rows, slot), row))
+    return _local_result(buf, out, in_place)
+
+
+def _slot_write_local(buf, new, idx, in_place: bool):
+    """The uniform write of a DTensor (B, T, ...) buffer in its own
+    layout: ``new`` laid out as ``buf`` on every axis but the ring's, and
+    ``idx`` (a plain (1,) slot) the same on every rank.  Where the ring is
+    not sharded (a head-sharded cache) each rank writes its own rows'
+    slice, with no collective; where it is, the rank holding the slot
+    writes the row and the others write their slice's own row back."""
+    new = _laid_out(new, buf.device_mesh, _off_ring(buf))
+    local = buf.to_local()
+    row = new.to_local().to(local.dtype)
+    slot = idx - cm.shard_offset(buf, 1)
+    if local.shape[1] != buf.shape[1]:
+        mine = ((slot >= 0) & (slot < local.shape[1])).reshape(())
+        slot = torch.clamp(slot, 0, local.shape[1] - 1)
+        row = torch.where(mine, row, local.index_select(1, slot))
+    out = (local.index_copy_(1, slot, row) if in_place
+           else local.index_copy(1, slot, row))
+    return _local_result(buf, out, in_place)
+
+
+def _copy_into(dst, src):
+    """``src``'s values into ``dst`` (trees of the same structure); a
+    DTensor ``src`` is first laid out as ``dst``."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+        return
+    if is_dtensor(dst):
+        if tuple(src.placements) != tuple(dst.placements):
+            src = src.redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+        return
+    dst.copy_(src)
+
+
+def _write(ctx: Ctx, buf, new):
+    """The decode ring write of ``ctx``'s options."""
+    return _ring_write(buf, new, ctx.lengths, ctx.shard, ctx.uniform_pos,
+                       ctx.carry)
 
 
 def _attn_kw(ctx: Ctx) -> dict:
@@ -219,8 +305,8 @@ def _attn_sublayer(p, x, ctx: Ctx, cache, *, window, causal=True):
     h = cm.rmsnorm(x, p["ln1"], cfg.norm_eps)
     q, k, v = cm.attn_qkv_heads(p["attn"], h, cfg, ctx.cos, ctx.sin)
     if ctx.phase == "decode":
-        cache = {"k": _ring_write(cache["k"], k, ctx.lengths, ctx.shard),
-                 "v": _ring_write(cache["v"], v, ctx.lengths, ctx.shard)}
+        cache = {"k": _write(ctx, cache["k"], k),
+                 "v": _write(ctx, cache["v"], v)}
         cl = cache["k"].shape[1]
         valid = torch.clamp(ctx.lengths, max=cl)
         win = None if (window is None or window >= cl) else window
@@ -286,12 +372,8 @@ def _mla_sublayer(p, x, ctx: Ctx, cache):
     if ctx.phase == "decode":
         c_kv_new, k_rope_new = mla_mod.mla_latent(p["attn"], h, cfg,
                                                   ctx.cos, ctx.sin)
-        cache = {
-            "ckv": _ring_write(cache["ckv"], c_kv_new, ctx.lengths,
-                               ctx.shard),
-            "krope": _ring_write(cache["krope"], k_rope_new[:, :, 0],
-                                 ctx.lengths, ctx.shard),
-        }
+        cache = {"ckv": _write(ctx, cache["ckv"], c_kv_new),
+                 "krope": _write(ctx, cache["krope"], k_rope_new[:, :, 0])}
         valid = torch.clamp(ctx.lengths, max=cache["ckv"].shape[1])
         o = mla_mod.mla_decode(p["attn"], h, cfg, ctx.cos, ctx.sin,
                                (cache["ckv"], cache["krope"]), valid)
@@ -310,6 +392,9 @@ def _state_sublayer(kind, p, x, ctx: Ctx, cache):
     if ctx.phase == "decode":
         step = rg_mod.rglru_step if kind == "rec" else ssd_mod.ssd_step
         o, (h, conv) = step(p[key], x, ctx.cfg, (cache["h"], cache["conv"]))
+        if ctx.carry:
+            _copy_into(cache, {"h": h, "conv": conv})
+            return o, cache
         return o, {"h": h, "conv": conv}
     seq = rg_mod.rglru_seq if kind == "rec" else ssd_mod.ssd_seq
     o, (h, conv) = seq(p[key], x, ctx.cfg)
@@ -359,7 +444,8 @@ def _unbind(stacked: dict) -> dict:
 
 
 def _layer(layers: dict, li: int) -> dict:
-    """Layer ``li`` of ``_unbind``'s result."""
+    """Layer ``li`` of ``_unbind``'s result, or a view of layer ``li`` of a
+    stacked tree."""
     return {k: _layer(v, li) if isinstance(v, dict) else v[li]
             for k, v in layers.items()}
 
@@ -431,6 +517,8 @@ class LM:
     cfg: ModelConfig
     remat_policy: str = "minimal"   # minimal | dots | off
     attn_blocks: Optional[tuple] = None  # (q_block, kv_block) override
+    decode_carry_cache: bool = False  # decode writes the caller's cache
+    assume_uniform_decode: bool = False  # all requests share a position
     vocab_parallel: bool = False    # one-hot embed + vocab-sharded logits
 
     def __post_init__(self):
@@ -474,9 +562,16 @@ class LM:
     def _run_segment(self, seg: Segment, seg_params, x, ctx: Ctx,
                      cache=None):
         """Run a segment's layers in order.  Returns (x, new_cache stacked
-        on the layer axis or None, aux summed over the layers)."""
+        on the layer axis or None, aux summed over the layers); a decode
+        that carries its cache (``ctx.carry``) writes each layer's slice
+        of ``cache`` in place and returns ``cache`` itself."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         p_layers = _unbind(seg_params)
+        if ctx.phase == "decode" and ctx.carry:
+            for li in range(seg.count):
+                x, aux, _ = _layer_apply(seg.kinds, _layer(p_layers, li), x,
+                                         aux, ctx, _layer(cache, li))
+            return x, cache, aux
         c_layers = None if cache is None else _unbind(cache)
         remat = (ctx.phase == "train" and self.remat_policy != "off"
                  and torch.is_grad_enabled())
@@ -659,7 +754,14 @@ class LM:
     def decode_step(self, params, cache, tokens, positions,
                     shard: Shard = _identity, cache_len: int = 0):
         """tokens: (B,) new token ids; positions: (B,) their indices.
-        Returns (logits (B, V), new_cache); ``cache`` is left as it was."""
+        Returns (logits (B, V), new_cache).  By default ``cache`` is left
+        as it was.  With ``decode_carry_cache`` the cache passed in is
+        mutated: each layer's new row and recurrent state are written into
+        it in place, and ``new_cache`` is that same cache (the same
+        tensors).  With ``assume_uniform_decode`` every request's row goes
+        to slot ``positions[0] % ring``; that the positions are all equal
+        is assumed, not checked (a request at another position gets its
+        row at the wrong slot)."""
         with mesh_scope(params):
             return self._decode_step(params, cache, tokens, positions,
                                      shard, cache_len)
@@ -671,7 +773,11 @@ class LM:
         cos, sin = self._angles(self._decode_positions(positions))
         x = cm.embed_apply(params["embed"], tokens[:, None], cfg)
         ctx = self._ctx(cos=cos, sin=sin, phase="decode", shard=shard,
-                        lengths=positions + 1, cache_len=cache_len)
+                        lengths=positions + 1, cache_len=cache_len,
+                        carry=self.decode_carry_cache)
+        if self.assume_uniform_decode:
+            ctx.uniform_pos = (positions.full_tensor() if is_dtensor(positions)
+                               else positions)[0]
         new_cache = {}
         for seg in segments_for(cfg):
             x, new_cache[seg.name], _ = self._run_segment(

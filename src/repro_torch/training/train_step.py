@@ -11,8 +11,13 @@ the parameters' dtype (bf16 gradients for bf16 parameters, as the
 reference's).  AdamW updates the state's tensors in place
 (``optimizer.apply_updates``).  Under a mesh the state and batch are
 DTensors (``launch/train.py``), ``shard`` is ``Rules.act_shard()`` and
-every rank runs the same step; gradient accumulation over microbatches
-takes plain tensors only.
+every rank runs the same step, with or without microbatches.  Microbatch
+i is the global rows ``i*mb .. (i+1)*mb`` of the batch, as the
+reference's ``dynamic_slice_in_dim``: a DTensor batch is gathered along
+its batch axis once (token ids, not activations) and each microbatch is
+laid out again as the batch was where its rows divide the mesh dims that
+shard them (``_microbatches``); the f32 accumulators take each
+parameter's layout.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.lm import LM, Shard, _identity, mesh_scope
 from repro_torch.training import optimizer as opt
 from repro_torch.training.tree import leaves, tree_map, unflatten
@@ -53,21 +59,45 @@ def _grads(lm: LM, params, batch, shard: Shard):
             unflatten(params, grads))
 
 
+def _batch_axis(a, b: int) -> int:
+    """The batch axis of a batch leaf: 1 for M-RoPE positions (3, B, S),
+    else 0."""
+    return 1 if (a.dim() >= 2 and a.shape[0] == 3 and a.shape[1] == b) \
+        else 0
+
+
+def _microbatches(a, axis: int, mb: int):
+    """A function of i giving rows ``i*mb .. (i+1)*mb`` of ``a`` along
+    ``axis``.  A DTensor is gathered along ``axis`` once; each slice is
+    then laid out as ``a`` where ``mb`` divides the mesh dims that shard
+    ``axis`` (a local split, no collective), else replicated on them."""
+    if not is_dtensor(a):
+        return lambda i: a.narrow(axis, i * mb, mb)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = a.device_mesh
+    on_axis = [isinstance(p, Shard) and p.dim == axis for p in a.placements]
+    whole = a.redistribute(mesh, [Replicate() if on else p for on, p in
+                                  zip(on_axis, a.placements)])
+    ways = 1
+    for on, size in zip(on_axis, mesh.shape):
+        ways *= size if on else 1
+    want = a.placements if mb % ways == 0 else whole.placements
+
+    def take(i):
+        part = DTensor.from_local(
+            whole.to_local().narrow(axis, i * mb, mb), mesh,
+            whole.placements, run_check=False)
+        return part.redistribute(mesh, want)
+    return take
+
+
 def train_step(lm: LM, tcfg: TrainConfig, state: dict, batch: dict,
                shard: Shard = _identity,
                grad_transform: Optional[Callable] = None):
-    """One optimizer step.  ``grad_transform`` hooks gradient compression
-    (training/compression.py) between backprop and AdamW.  Returns (state,
-    metrics: ce, aux, lr, grad_norm, loss); the state's tensors are updated
-    in place."""
+    """One optimizer step, ``grad_transform`` between backprop and AdamW.
+    Returns (state, metrics: ce, aux, lr, grad_norm, loss); the state's
+    tensors are updated in place."""
     b = batch["tokens"].shape[0]
-
-    def slice_batch(i, mb):
-        def sl(a):
-            axis = 1 if (a.dim() >= 2 and a.shape[0] == 3
-                         and a.shape[1] == b) else 0
-            return a.narrow(axis, i * mb, mb)
-        return {k: sl(v) for k, v in batch.items()}
 
     if tcfg.microbatch and tcfg.microbatch < b:
         # gradient accumulation over microbatches (sequential, memory-lean)
@@ -76,19 +106,24 @@ def train_step(lm: LM, tcfg: TrainConfig, state: dict, batch: dict,
             raise ValueError(f"batch {b} is not a multiple of the "
                              f"microbatch {mb}")
         n = b // mb
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device),
-                         state["params"])
-        loss = torch.zeros((), dtype=torch.float32,
-                           device=batch["tokens"].device)
-        for i in range(n):
-            loss_i, _, g = _grads(lm, state["params"], slice_batch(i, mb),
-                                  shard)
-            tree_map(lambda ga, gi: ga.add_(gi.float()), grads, g)
-            loss = loss + loss_i
-        grads = tree_map(lambda g: opt.true_div(g, n), grads)
-        loss = opt.true_div(loss, n)
-        metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
+        slicers = {k: _microbatches(v, _batch_axis(v, b), mb)
+                   for k, v in batch.items()}
+        params = state["params"]
+        with mesh_scope(params):
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+            for i in range(n):
+                loss_i, _, g = _grads(lm, params,
+                                      {k: f(i) for k, f in slicers.items()},
+                                      shard)
+                tree_map(_accumulate, grads, g)
+                del g  # free this microbatch's gradients before the next
+                loss = loss + loss_i
+            grads = tree_map(lambda g: opt.true_div(g, n), grads)
+            loss = opt.true_div(loss, n)
+            metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
     else:
         loss, metrics, grads = _grads(lm, state["params"], batch, shard)
 
@@ -99,3 +134,11 @@ def train_step(lm: LM, tcfg: TrainConfig, state: dict, batch: dict,
         tcfg.adamw, state["params"], state["opt"], grads)
     metrics = dict(metrics, **opt_metrics, loss=loss)
     return {"params": params, "opt": opt_state}, metrics
+
+
+def _accumulate(acc, g):
+    """``acc += g`` in f32; a DTensor ``g`` is first laid out as ``acc``
+    (its parameter's layout)."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(acc.placements):
+        g = g.redistribute(acc.device_mesh, acc.placements)
+    acc.add_(g.float())

@@ -15,6 +15,15 @@ stalling the suite.  The reference side (its single-device step, prefill
 and decode, ``_quant`` and ``sequential_apply``) is computed once in the
 parent while the ranks run.
 
+The sharded step also runs with microbatches (``microbatch=2``: global
+rows 0-1 then 2-3, each microbatch sharded over "data") and with int8
+error-feedback compression (error buffers laid out as the parameters),
+each against the reference's and the port's single-device step with the
+same option; ``launch.train`` runs on the mesh with and without
+``compress_grads``; and a decode over a head-sharded cache carries the
+cache in place (``decode_carry_cache``) at a uniform position
+(``assume_uniform_decode``).
+
 The bounds are the reference test's own: the sharded step's loss within
 2e-2 and every parameter within 0.05 of the single-device step's;
 prefill + decode within 0.06; the elastic checkpoint bit for bit (and
@@ -38,6 +47,7 @@ COLLECTIVE_TIMEOUT = 120
 B, S, CACHE_LEN = 4, 32, 40
 ADAMW = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 ARCH = "minitron-8b"
+CARRY_ARCH = "gemma-7b"   # reduced: 4 KV heads, a head-sharded cache
 RUN = dict(arch=ARCH, steps=2, seq_len=S, global_batch=B, ckpt_every=1,
            log_every=0, device="cpu")
 
@@ -68,15 +78,16 @@ def _rank_checks(rank: int, work: Path) -> dict:
     from repro_torch.configs.reduced import reduced
     from repro_torch.distributed.pipeline import (pipeline_apply,
                                                   sequential_apply)
-    from repro_torch.distributed.sharding import (Rules, distribute,
+    from repro_torch.distributed.sharding import (P, Rules, distribute,
                                                   placements)
     from repro_torch.launch.train import RunConfig, train
     from repro_torch.models.lm import LM
     from repro_torch.training import checkpoint as ckpt
-    from repro_torch.training import optimizer
+    from repro_torch.training import compression, optimizer
     from repro_torch.training.compression import quantized_psum
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.training.train_step import (TrainConfig,
+                                                 _microbatches,
                                                  init_train_state,
                                                  train_step)
     from repro_torch.training.tree import items, tree_map
@@ -111,6 +122,54 @@ def _rank_checks(rank: int, work: Path) -> dict:
                         state=_fulls(new), layouts=layouts,
                         seconds=time.perf_counter() - t0)
 
+    # microbatches of the global rows, laid out again over "data" where
+    # they divide it (2 rows) and replicated where not (1 row)
+    tokens = dbatch["tokens"]
+    out["microbatches"] = {
+        mb: [(_full(f(i)).clone(), tuple(f(i).placements))
+             for i in range(B // mb)]
+        for mb in (1, 2) for f in [_microbatches(tokens, 0, mb)]}
+
+    # the int8 round trip of a (4, 64) gradient sharded over both mesh
+    # dims, against the same on the whole tensor
+    grad = {"w": inp["psum_x"]}
+    dgrad = distribute(grad, {"w": P("data", "model")}, mesh)
+    derr = distribute({"w": 0.01 * inp["psum_x"].flip(0)},
+                      {"w": P("data", "model")}, mesh)
+    out["compress_exact"] = dict(
+        got=[_fulls(t) for t in compression.compress_decompress(dgrad,
+                                                                derr)],
+        placements=tuple(dgrad["w"].placements),
+        zero_placements=tuple(compression.init_error_state(
+            dgrad)["w"].placements))
+
+    # the sharded step with microbatches, then with compression
+    tcfg = TrainConfig(adamw=AdamWConfig(**ADAMW))
+    new, metrics = train_step(
+        lm, TrainConfig(adamw=AdamWConfig(**ADAMW), microbatch=2),
+        distribute(fresh_state(), specs, mesh), dbatch, shard=shard)
+    out["train_mb"] = dict(loss=_full(metrics["loss"]).item(),
+                           state=_fulls(new))
+    dstate = distribute(fresh_state(), specs, mesh)
+    err = compression.init_error_state(dstate["params"])
+    held = {}
+
+    def compress(grads):
+        grads, held["err"] = compression.compress_decompress(grads, err)
+        return grads
+
+    new, metrics = train_step(lm, tcfg, dstate, dbatch, shard=shard,
+                              grad_transform=compress)
+
+    def same_layout(tree):
+        return {k: tuple(e.placements) == tuple(p.placements)
+                for (k, e), (_, p) in zip(items(tree),
+                                          items(new["params"]))}
+    out["train_compress"] = dict(
+        loss=_full(metrics["loss"]).item(), state=_fulls(new),
+        err_layouts={**same_layout(err), **{
+            f"after/{k}": v for k, v in same_layout(held["err"]).items()}})
+
     # prefill + decode from the initial parameters
     dparams = distribute(tree_map(torch.clone, inp["params"]),
                          rules.param_specs(inp["params"]), mesh)
@@ -123,6 +182,37 @@ def _rank_checks(rank: int, work: Path) -> dict:
                             shard=shard)
     out["decode"] = dict(prefill=_full(logits).float(),
                          decode=_full(dec).float())
+
+    # decodes that carry the cache in place at a uniform position: over
+    # Minitron's cache sharded along the ring, and over reduced Gemma-7B's
+    # head-sharded cache (4 KV heads; Minitron's 1 does not divide)
+    out["carried"] = {}
+    for arch, params, head in ((ARCH, inp["params"], False),
+                               (CARRY_ARCH, inp["gparams"], True)):
+        c_cfg = reduced(configs.get(arch))
+        c_rules = Rules(c_cfg, mesh, head_sharded_cache=head)
+        c_shard = c_rules.act_shard()
+        c_params = distribute(tree_map(torch.clone, params),
+                              c_rules.param_specs(params), mesh)
+        _, c_cache = LM(c_cfg).prefill(c_params, {"tokens": toks},
+                                       cache_len=CACHE_LEN, shard=c_shard)
+        whole = tree_map(_full, c_cache)
+        c_cache = distribute(whole, c_rules.cache_spec(whole), mesh)
+        before = [(v, v.to_local().data_ptr(), tuple(v.placements))
+                  for _, v in items(c_cache)]
+        carried, back = LM(c_cfg, decode_carry_cache=True,
+                           assume_uniform_decode=True).decode_step(
+            c_params, c_cache, inp["next"],
+            torch.full((B,), S, dtype=torch.int32), shard=c_shard)
+        axis = 3 if head else 2
+        out["carried"][arch] = dict(
+            decode=_full(carried).float(), cache=_fulls(c_cache),
+            sharded=[k for k, v in items(c_cache)
+                     if any(p.is_shard() and p.dim == axis
+                            for p in v.placements)],
+            same=all(v is b and v.to_local().data_ptr() == ptr
+                     and tuple(v.placements) == pl
+                     for (v, ptr, pl), (_, b) in zip(before, items(back))))
 
     # the vocab-parallel loss against the default loss, same inputs
     loss_vp, _ = LM(cfg, vocab_parallel=True).loss(dparams, dbatch, shard)
@@ -169,6 +259,9 @@ def _rank_checks(rank: int, work: Path) -> dict:
     out["launch"] = dict(losses=run["losses"],
                          grad_norms=run["grad_norms"],
                          params=_fulls(run["state"]["params"]))
+    run = train(RunConfig(compress_grads=True, **RUN), mesh=mesh)
+    out["launch_compress"] = dict(losses=run["losses"],
+                                  params=_fulls(run["state"]["params"]))
     return out
 
 
@@ -254,6 +347,9 @@ def _reference(inp_np: dict) -> dict:
     from repro.training.optimizer import AdamWConfig
     from repro.training.train_step import TrainConfig, train_step
 
+    def compress(g):
+        return jcomp.compress_decompress(g, jcomp.init_error_state(g))[0]
+
     fast = {"xla_backend_optimization_level": 0}
     lm = JLM(jreduced(jconfigs.get(ARCH)))
     state = inp_np["jstate"]
@@ -261,6 +357,18 @@ def _reference(inp_np: dict) -> dict:
     tcfg = TrainConfig(adamw=AdamWConfig(**ADAMW))
     new, metrics = jax.jit(lambda s, b: train_step(lm, tcfg, s, b),
                            compiler_options=fast)(state, batch)
+    options = {}
+    for opt, kw in (("mb", dict(tcfg=TrainConfig(
+            adamw=AdamWConfig(**ADAMW), microbatch=2))),
+            ("compress", dict(tcfg=tcfg, grad_transform=compress))):
+        o_new, o_metrics = jax.jit(
+            lambda s, b, kw=kw: train_step(lm, kw["tcfg"], s, b,
+                                           grad_transform=kw.get(
+                                               "grad_transform")),
+            compiler_options=fast)(state, batch)
+        options[opt] = dict(loss=float(o_metrics["loss"]), params={
+            k: np.asarray(v, np.float32)
+            for k, v in _flat(o_new["params"]).items()})
     params = state["params"]
     logits, cache = jax.jit(lambda p, t: lm.prefill(p, {"tokens": t},
                                                     cache_len=CACHE_LEN),
@@ -268,6 +376,17 @@ def _reference(inp_np: dict) -> dict:
     dec, _ = jax.jit(lm.decode_step, compiler_options=fast)(
         params, cache, jnp.argmax(logits, -1).astype(jnp.int32),
         jnp.full((B,), S, jnp.int32))
+    carried = {}
+    for arch, jp in ((ARCH, params), (CARRY_ARCH, inp_np["jgparams"])):
+        c_lm = JLM(jreduced(jconfigs.get(arch)))
+        _, c_cache = jax.jit(
+            lambda p, t, c_lm=c_lm: c_lm.prefill(p, {"tokens": t},
+                                                 cache_len=CACHE_LEN),
+            compiler_options=fast)(jp, batch["tokens"])
+        c_dec, _ = jax.jit(c_lm.decode_step, compiler_options=fast)(
+            jp, c_cache, jnp.asarray(inp_np["next"]),
+            jnp.full((B,), S, jnp.int32))
+        carried[arch] = np.asarray(c_dec, np.float32)
     xs = inp_np["psum_x"]
     scale_max = max(float(jcomp._quant(jnp.asarray(x))[1]) for x in xs)
     scale_max = np.float32(scale_max)
@@ -275,6 +394,7 @@ def _reference(inp_np: dict) -> dict:
                               -127, 127).astype(jnp.int32)) for x in xs]
     total = np.sum(q2, axis=0, dtype=np.int32)
     return dict(
+        options=options, carried=carried,
         loss=float(metrics["loss"]),
         params={k: np.asarray(v, np.float32) for k, v in
                 _flat(new["params"]).items()},
@@ -302,24 +422,55 @@ def _port_single(inp: dict) -> dict:
     from repro_torch.configs.reduced import reduced
     from repro_torch.launch.train import RunConfig, train
     from repro_torch.models.lm import LM
+    from repro_torch.training import compression
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
     from repro_torch.training.train_step import TrainConfig, train_step
     from repro_torch.training.tree import tree_map
+
+    def fresh_state():
+        params = tree_map(torch.clone, inp["params"])
+        return {"params": params, "opt": init_opt_state(params)}
+
+    def compress(g):
+        return compression.compress_decompress(
+            g, compression.init_error_state(g))[0]
 
     lm = LM(reduced(configs.get(ARCH)))
     params = tree_map(torch.clone, inp["params"])
     with torch.no_grad():
         logits, cache = lm.prefill(params, {"tokens": inp["batch"]["tokens"]},
                                    cache_len=CACHE_LEN)
-        dec, _ = lm.decode_step(params, cache,
-                                torch.argmax(logits, -1).to(torch.int32),
-                                torch.full((B,), S, dtype=torch.int32))
+        dec, _ = lm.decode_step(
+            params, cache, torch.argmax(logits, -1).to(torch.int32),
+            torch.full((B,), S, dtype=torch.int32))
+        carried = {}
+        for arch, c_params in ((ARCH, params), (CARRY_ARCH, inp["gparams"])):
+            c_lm = LM(reduced(configs.get(arch)))
+            _, c_cache = c_lm.prefill(
+                c_params, {"tokens": inp["batch"]["tokens"]},
+                cache_len=CACHE_LEN)
+            c_dec, c_cache = c_lm.decode_step(
+                c_params, c_cache, inp["next"],
+                torch.full((B,), S, dtype=torch.int32))
+            carried[arch] = dict(decode=c_dec.float(),
+                                 cache=_flat(c_cache))
         loss, _ = lm.loss(params, inp["batch"])
     new, metrics = train_step(lm, TrainConfig(adamw=AdamWConfig(**ADAMW)),
                               {"params": params,
                                "opt": init_opt_state(params)}, inp["batch"])
+    tcfg = TrainConfig(adamw=AdamWConfig(**ADAMW))
+    options = {}
+    for opt, tc, gt in (("mb", TrainConfig(adamw=AdamWConfig(**ADAMW),
+                                           microbatch=2), None),
+                        ("compress", tcfg, compress)):
+        o_new, o_metrics = train_step(lm, tc, fresh_state(), inp["batch"],
+                                      grad_transform=gt)
+        options[opt] = dict(loss=o_metrics["loss"].item(), state={
+            k: v.clone() for k, v in _flat(o_new).items()})
     run = train(RunConfig(**RUN))
-    return dict(loss=metrics["loss"].item(),
+    return dict(options=options, carried=carried,
+                launch_compress=train(RunConfig(compress_grads=True, **RUN)),
+                loss=metrics["loss"].item(),
                 grad_norm=metrics["grad_norm"].item(),
                 state={k: v.clone() for k, v in _flat(new).items()},
                 prefill=logits.float(), decode=dec.float(),
@@ -353,15 +504,18 @@ def ranks(tmp_path_factory):
     cfg = reduced(configs.get(ARCH))
     params = LM(cfg).init_params(torch.Generator().manual_seed(0),
                                  device="cpu")
+    gparams = LM(reduced(configs.get(CARRY_ARCH))).init_params(
+        torch.Generator().manual_seed(1), device="cpu")
     rng = np.random.default_rng(0)
     batch = {k: rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
              for k in ("tokens", "labels")}
-    inp_np = dict(batch=batch,
+    nxt = rng.integers(0, cfg.vocab_size, (B,)).astype(np.int32)
+    inp_np = dict(batch=batch, next=nxt,
                   psum_x=rng.standard_normal((WORLD, 64)).astype(np.float32),
                   ws=(0.3 * rng.standard_normal((4, 16, 16))
                       ).astype(np.float32),
                   xs=rng.standard_normal((8, 4, 16)).astype(np.float32))
-    inp = dict(params=params,
+    inp = dict(params=params, gparams=gparams, next=torch.from_numpy(nxt),
                batch={k: torch.from_numpy(v) for k, v in batch.items()},
                psum_x=torch.from_numpy(inp_np["psum_x"]),
                ws=torch.from_numpy(inp_np["ws"]),
@@ -371,6 +525,7 @@ def ranks(tmp_path_factory):
     try:
         jparams = _as_jax(params)
         inp_np["jstate"] = {"params": jparams, "opt": jinit_opt(jparams)}
+        inp_np["jgparams"] = _as_jax(gparams)
         ref = _reference(inp_np)
         single = _port_single(inp)
     finally:
@@ -497,3 +652,93 @@ def test_launch_train_on_mesh_matches_single_device(ranks):
         assert d < 0.05, (k, d)
     assert sorted(os.listdir(work / "run")) == ["step_00000001",
                                                "step_00000002"]
+
+
+def test_microbatches_are_the_global_rows(ranks):
+    """Microbatch i of a batch sharded over "data" is global rows
+    ``i*mb .. (i+1)*mb`` (the reference's ``dynamic_slice_in_dim``), laid
+    out over "data" when ``mb`` divides it and replicated when not."""
+    got, _, _, inp, _ = ranks
+    tokens = inp["batch"]["tokens"]
+    for mb, parts in got["microbatches"].items():
+        assert len(parts) == B // mb
+        for i, (part, pl) in enumerate(parts):
+            assert torch.equal(part, tokens[i * mb:(i + 1) * mb])
+            assert pl[0].is_shard(0) == (mb % 2 == 0), (mb, pl)
+
+
+@pytest.mark.parametrize("option", ["mb", "compress"])
+def test_sharded_step_with_option_matches_single_device(ranks, option):
+    """The sharded step with microbatches (2) or with compression against
+    the reference's and the port's single-device step with the same
+    option: loss within 2e-2, every parameter within 0.05."""
+    got, ref, single, _, _ = ranks
+    tr = got["train_" + option]
+    want_ref, want_port = ref["options"][option], single["options"][option]
+    for want in (want_port["loss"], want_ref["loss"]):
+        assert abs(tr["loss"] - want) < 2e-2, (tr["loss"], want)
+    params = {k[len("params/"):]: v for k, v in tr["state"].items()
+              if k.startswith("params/")}
+    assert sorted(params) == sorted(want_ref["params"])
+    for k, v in params.items():
+        for want in (want_port["state"][f"params/{k}"].float().numpy(),
+                     want_ref["params"][k]):
+            d = float(np.max(np.abs(v.float().numpy() - want)))
+            assert d < 0.05, (k, d)
+
+
+def test_compression_of_a_sharded_gradient_is_exact(ranks):
+    """``compress_decompress`` of a gradient sharded over both mesh dims:
+    the whole tensor's round trip bit for bit (one scale from the global
+    ``max|x|``), the error buffers zero in the gradient's layout."""
+    from repro_torch.training import compression
+
+    got, _, _, inp, _ = ranks
+    ce = got["compress_exact"]
+    x = inp["psum_x"]
+    want = compression.compress_decompress({"w": x}, {"w": 0.01 * x.flip(0)})
+    for g, w in zip(ce["got"], want):
+        assert torch.equal(g["w"], w["w"])
+    assert ce["zero_placements"] == ce["placements"]
+    assert all(p.is_shard() for p in ce["placements"])
+
+
+def test_compression_error_state_laid_out_as_parameters(ranks):
+    """Every error buffer, fresh and after the step, carries its
+    parameter's placements (some of them sharded)."""
+    lay = ranks[0]["train_compress"]["err_layouts"]
+    assert lay and all(lay.values()), [k for k, ok in lay.items() if not ok]
+
+
+def test_launch_train_compressed_on_mesh_matches_single_device(ranks):
+    """``launch.train(run, mesh)`` with ``compress_grads=True`` against the
+    same run without a mesh: losses within 2e-2, parameters within
+    0.05."""
+    got, _, single, _, _ = ranks
+    mesh_run, plain = got["launch_compress"], single["launch_compress"]
+    assert len(mesh_run["losses"]) == RUN["steps"]
+    for a, b in zip(mesh_run["losses"], plain["losses"]):
+        assert abs(a - b) < 2e-2, (mesh_run["losses"], plain["losses"])
+    for k, v in _flat(plain["state"]["params"]).items():
+        d = float((mesh_run["params"][k].float() - v.float()).abs().max())
+        assert d < 0.05, (k, d)
+
+
+@pytest.mark.parametrize("arch", [ARCH, CARRY_ARCH])
+def test_carried_uniform_decode_matches_single_device(ranks, arch):
+    """A decode with ``decode_carry_cache`` and ``assume_uniform_decode``
+    over Minitron's cache sharded along the ring and over reduced
+    Gemma-7B's head-sharded cache: logits within 0.06 of the port's and
+    the reference's single-device decode, the cache returned is the one
+    passed in (the same DTensors, local storage and placements), and its
+    leaves hold the single-device decode's new cache within 0.06."""
+    got, ref, single, _, _ = ranks
+    car, want = got["carried"][arch], single["carried"][arch]
+    assert car["sharded"] and car["same"]
+    for w in (want["decode"].numpy(), ref["carried"][arch]):
+        d = float(np.max(np.abs(car["decode"].numpy() - w)))
+        assert d < 0.06, d
+    assert sorted(car["cache"]) == sorted(want["cache"])
+    for k, v in car["cache"].items():
+        d = float((v.float() - want["cache"][k].float()).abs().max())
+        assert d < 0.06, (k, d)

@@ -88,14 +88,12 @@ def test_records_and_overrides_parity(arch, tmp_path):
     """Every (shape x mesh) cell: ``applicable`` as the reference's; a
     skipped cell's record and JSON file equal the reference's own
     ``run_cell`` record (which returns before any compile);
-    ``optimized_overrides`` the reference's minus
-    ``assume_uniform_decode``."""
+    ``optimized_overrides`` the reference's, whole."""
     for name in SHAPES:
         ok, why = applicable(configs.get(arch), SHAPES[name])
         assert (ok, why) == japplicable(jconfigs.get(arch), JSHAPES[name])
         lm_kw, rules_kw = dryrun.optimized_overrides(arch, name)
         jlm_kw, jrules_kw = jdryrun.optimized_overrides(arch, name)
-        jlm_kw.pop("assume_uniform_decode", None)
         assert (lm_kw, rules_kw) == (jlm_kw, jrules_kw)
         if ok:
             continue

@@ -36,10 +36,16 @@ def _nodrop(cfg):
 
 
 @functools.cache
+def _jparams(arch):
+    """The reference's parameters from key 0 (drawn eagerly once an arch:
+    its jitted draw rounds otherwise)."""
+    return JLM(jreduced(jconfigs.get(arch)), remat_policy="off").init_params(
+        jax.random.key(0))
+
+
+@functools.cache
 def _params(arch):
-    return convert.lm_params(jax.tree.map(np.asarray, JLM(
-        jreduced(jconfigs.get(arch)), remat_policy="off").init_params(
-            jax.random.key(0))), "cpu")
+    return convert.lm_params(jax.tree.map(np.asarray, _jparams(arch)), "cpu")
 
 
 def _model(arch):
@@ -135,3 +141,90 @@ def test_recurrent_residual_overflows_as_in_the_reference(layers, finite):
             assert bool(np.isfinite(got).all()) == finite
         elif finite:
             assert float(np.abs(got - want).max()) < 2e-3
+
+
+# --------------------------------------------------------------------------
+# the decode cache carried in place, the uniform slot write
+# --------------------------------------------------------------------------
+
+F32_TOL = 2e-3
+# the reference's decodes and prefill below are jitted without XLA's
+# backend optimizations: a third of their eager time, the same math
+FAST = {"xla_backend_optimization_level": 0}
+FLAGS = [dict(decode_carry_cache=True), dict(assume_uniform_decode=True),
+         dict(decode_carry_cache=True, assume_uniform_decode=True)]
+
+
+def _leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(_leaves(v, f"{prefix}{k}/") if isinstance(v, dict)
+                   else {prefix + k: v})
+    return out
+
+
+@functools.cache
+def _f32_setup(arch):
+    """Reduced ``arch`` in f32 on both sides: the reference's prefill of 32
+    tokens (its cache, carried across, is every decode's start), the
+    decode token, and the port's parameters and decode without flags."""
+    jcfg = _nodrop(jreduced(jconfigs.get(arch)))
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32), _jparams(arch))
+    toks = jax.random.randint(jax.random.key(1), (B, S), 0, jcfg.vocab_size,
+                              dtype=jnp.int32)
+    pre = {"tokens": toks[:, :-1]}
+    if jcfg.enc_layers:
+        pre["enc_frames"] = 0.1 * jax.random.normal(jax.random.key(3),
+                                                    (B, 32, jcfg.d_model))
+    _, jcache = jax.jit(lambda p, b: JLM(jcfg, remat_policy="off").prefill(
+        p, b, cache_len=40), compiler_options=FAST)(jp, pre)
+    lm = LM(_nodrop(reduced(configs.get(arch))))
+    params = convert.lm_params(jax.tree.map(np.asarray, jp), "cpu")
+    cache = jax.tree.map(np.asarray, jcache)
+    want, want_cache = lm.decode_step(params, _torch_tree(cache),
+                                      _t(toks[:, -1]), _positions())
+    return jcfg, jp, cache, toks[:, -1], params, want, want_cache
+
+
+def _torch_tree(tree):
+    return {k: _torch_tree(v) if isinstance(v, dict) else _t(v)
+            for k, v in tree.items()}
+
+
+def _positions():
+    return torch.full((B,), S - 1, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("flags", FLAGS,
+                         ids=["carry", "uniform", "carry+uniform"])
+@pytest.mark.parametrize("arch", jconfigs.names())
+def test_decode_flags_match_reference(arch, flags):
+    """``decode_step`` with ``decode_carry_cache`` and/or
+    ``assume_uniform_decode`` on every reduced config (all have a decode
+    cache), in f32 from the reference's prefill cache: logits and every
+    new cache leaf within 2e-3 of the reference's ``LM`` with the same
+    flags; bit for bit the port's decode without them; and the caller's
+    cache written in place and returned (the same tensors) when carried,
+    left as it was when not."""
+    jcfg, jp, cache, tok, params, want, want_cache = _f32_setup(arch)
+    jlogits, jnew = jax.jit(JLM(jcfg, remat_policy="off", **flags).decode_step,
+                            compiler_options=FAST)(
+        jp, jax.tree.map(jnp.asarray, cache), tok,
+        jnp.full((B,), S - 1, jnp.int32))
+    mine = _torch_tree(cache)
+    ptrs = {k: v.data_ptr() for k, v in _leaves(mine).items()}
+    got, new = LM(_nodrop(reduced(configs.get(arch))), **flags).decode_step(
+        params, mine, _t(tok), _positions())
+    assert float((got - _t(jlogits)).abs().max()) < F32_TOL
+    assert torch.equal(got, want)
+    jnew, new, want_cache = (_leaves(t) for t in (
+        jax.tree.map(np.asarray, jnew), new, want_cache))
+    assert sorted(new) == sorted(jnew) == sorted(want_cache)
+    for k, v in new.items():
+        assert float((v.float() - _t(jnew[k]).float()).abs().max()) \
+            < F32_TOL, k
+        assert torch.equal(v, want_cache[k]), k
+        carried = flags.get("decode_carry_cache", False)
+        assert (v.data_ptr() == ptrs[k]) == carried, k
+        assert torch.equal(_leaves(mine)[k],
+                           v if carried else _t(_leaves(cache)[k])), k

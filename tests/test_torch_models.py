@@ -177,3 +177,23 @@ def test_embed_and_unembed(trees, name):
                           np.asarray(ej).view(np.uint16))
     _close(cm.unembed_apply(tp["embed"], et, tcfg),
            jcm.unembed_apply(jp["embed"], ej, jcfg), atol=0.05)
+
+
+@pytest.mark.parametrize("shape", [(37, 50), (3, 40, 50), (5, 7)])
+def test_ninit_draws_slice_by_slice(monkeypatch, shape):
+    """A leaf past ``DRAW_CHUNK`` elements is drawn one ``randn`` a slice
+    of its leading axis (recursively where one slice is larger), the
+    slices' draws scaled and cast a buffer at a time; a smaller leaf in
+    one draw: the same values as those draws made one by one."""
+    monkeypatch.setattr(cm, "DRAW_CHUNK", 1000)
+
+    def by_hand(gen, shape):
+        if np.prod(shape) <= 1000:
+            return torch.randn(shape, generator=gen)
+        return torch.stack([by_hand(gen, shape[1:])
+                            for _ in range(shape[0])])
+
+    got = cm.ninit(torch.Generator().manual_seed(0), shape, 0.5, "cpu")
+    want = (by_hand(torch.Generator().manual_seed(0), shape) * 0.5).to(
+        cm.DTYPE)
+    assert torch.equal(got, want)
