@@ -18,6 +18,7 @@ tensors on ``device`` (``"meta"`` gives shapes and dtypes without memory).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -169,81 +170,97 @@ def _align(a, la, b, lb):
     return a, b
 
 
-def _local_einsum(eq, a, b, local_fn=None):
-    """``eq`` of two DTensors computed shard by shard, or None where that
-    is not the einsum of the whole tensors.  After ``_align``, per mesh
-    dim, each operand is replicated or sharded on an index that the other
-    operand shards alike or lacks.  A kept index sharded so shards the
-    output; a contracted index sharded alike gives each rank a partial sum,
-    taken in f32 and all-reduced in f32 before the result returns to the
-    operands' dtype (one rounding of an f32 sum, as a one-device product
-    accumulates).  An operand replicated where the other shards an index
-    it lacks gets a ``Partial`` gradient on that mesh dim (each rank holds
-    its shard's share).  DTensor's own einsum and matmul take the same
-    layouts, but plan them for ~0.06-0.7 s a call on a 2-D mesh and sum
-    partial products in the operands' dtype; this plans nothing.
-    ``local_fn`` computes the shards' product (default ``torch.einsum``
-    of ``eq``).  Plain tensors return None at once."""
-    if type(a) is torch.Tensor or type(b) is torch.Tensor:
+def _local_einsum(eq, *ops, local_fn=None):
+    """``eq`` of DTensors computed shard by shard, or None where that is
+    not the einsum of the whole tensors.  Two operands are first aligned
+    (``_align``); more are taken as they are laid out.  Then, per mesh
+    dim, each operand must be replicated or sharded on the one index that
+    the operands sharding there share, and every operand carrying that
+    index shards it.  A kept index sharded so shards the output; a
+    contracted index that every operand carries, sharded so, gives each
+    rank a partial sum, taken in f32 and all-reduced in f32 before the
+    result returns to the operands' dtype (one rounding of an f32 sum, as
+    a one-device product accumulates).  An operand replicated where
+    another shards an index it lacks gets a ``Partial`` gradient on that
+    mesh dim (each rank holds its shard's share).  DTensor's own einsum and
+    matmul take the same layouts, but plan them for ~0.06-0.7 s a call on
+    a 2-D mesh and sum partial products in the operands' dtype; this plans
+    nothing.  ``local_fn`` computes the shards' product (default
+    ``torch.einsum`` of ``eq``, one call over all the operands, as the
+    plain path makes it).  Plain tensors return None at once."""
+    if any(type(o) is torch.Tensor for o in ops):
         return None
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    if not (isinstance(a, DTensor) and isinstance(b, DTensor)
-            and a.device_mesh == b.device_mesh):
+    if not all(isinstance(o, DTensor) and o.device_mesh == ops[0].device_mesh
+               for o in ops):
         return None
     ins, out = eq.split("->")
-    la, lb = ins.split(",")
-    a, b = _align(a, la, b, lb)
-    placements, grad_a, grad_b = [], [], []
-    for pa, pb in zip(a.placements, b.placements):
-        ia = la[pa.dim] if type(pa) is Shard else None
-        ib = lb[pb.dim] if type(pb) is Shard else None
-        if ((ia is None and not isinstance(pa, Replicate))
-                or (ib is None and not isinstance(pb, Replicate))):
+    terms = ins.split(",")
+    if len(ops) == 2:
+        ops = _align(ops[0], terms[0], ops[1], terms[1])
+    placements, grads = [], [[] for _ in ops]
+    for ps in zip(*(o.placements for o in ops)):
+        if not all(type(p) is Shard or isinstance(p, Replicate)
+                   for p in ps):
             return None
-        if ia is None and ib is None:
+        idx = [t[p.dim] if type(p) is Shard else None
+               for t, p in zip(terms, ps)]
+        sharded = set(idx) - {None}
+        if not sharded:
             placements.append(Replicate())
-        elif ia == ib and ia not in out:
-            placements.append(Partial())
         else:
-            idx = ia or ib
-            if idx not in out or (ia and ib and ia != ib) \
-                    or (ia is None and idx in la) \
-                    or (ib is None and idx in lb):
+            if len(sharded) > 1:
                 return None
-            placements.append(Shard(out.index(idx)))
-        grad_a.append(Partial() if ia is None and ib is not None else pa)
-        grad_b.append(Partial() if ib is None and ia is not None else pb)
-    sizes = dict(zip(la, a.shape)) | dict(zip(lb, b.shape))
+            (i,) = sharded
+            if any(i in t and j is None for t, j in zip(terms, idx)):
+                return None
+            if i in out:
+                placements.append(Shard(out.index(i)))
+            elif all(i in t for t in terms):
+                placements.append(Partial())
+            else:
+                return None
+        for g, p, j in zip(grads, ps, idx):
+            g.append(Partial() if j is None and sharded else p)
+    sizes = {}
+    for t, o in zip(terms, ops):
+        sizes |= dict(zip(t, o.shape))
     shape = torch.Size(sizes[i] for i in out)
-    xa = a.to_local(grad_placements=grad_a)
-    xb = b.to_local(grad_placements=grad_b)
+    local = [o.to_local(grad_placements=g) for o, g in zip(ops, grads)]
     partial = any(isinstance(p, Partial) for p in placements)
-    dtype = torch.promote_types(a.dtype, b.dtype)
+    dtype = functools.reduce(torch.promote_types, (o.dtype for o in ops))
     if partial:
-        xa, xb = xa.float(), xb.float()
-    product = (local_fn(xa, xb) if local_fn is not None
-               else torch.einsum(eq, xa, xb))
+        local = [x.float() for x in local]
+    product = (local_fn(*local) if local_fn is not None
+               else torch.einsum(eq, *local))
     # DTensor reshapes its local tensor as a view, which a permuted
     # einsum result may not allow
-    res = DTensor.from_local(product.contiguous(), a.device_mesh,
+    res = DTensor.from_local(product.contiguous(), ops[0].device_mesh,
                              placements, run_check=False, shape=shape,
                              stride=torch.empty(shape, device="meta")
                              .stride())
     if partial:
-        res = res.redistribute(a.device_mesh, [
+        res = res.redistribute(ops[0].device_mesh, [
             Replicate() if isinstance(p, Partial) else p
             for p in placements]).to(dtype)
     return res
 
 
 def einsum(eq, *ops):
-    """``torch.einsum``; on DTensors, operand by operand from the left,
-    each pair shard by shard (``_local_einsum``) where their layouts
-    allow.  DTensor's own einsum folds the batch letters into one axis,
-    which it cannot do for letters sharded over two mesh dims."""
+    """``torch.einsum``; on DTensors, all the operands at once shard by
+    shard (``_local_einsum``) where their layouts allow, as one
+    ``torch.einsum`` on each rank, so that it contracts in the plain
+    path's order; else operand by operand from the left, each pair shard
+    by shard where their layouts allow.  DTensor's own einsum folds the
+    batch letters into one axis, which it cannot do for letters sharded
+    over two mesh dims."""
     from repro_torch.distributed.sharding import is_dtensor
     if not any(is_dtensor(o) for o in ops):
         return torch.einsum(eq, *ops)
+    if len(ops) > 2:
+        local = _local_einsum(eq, *ops)
+        if local is not None:
+            return local
     ins, out = eq.split("->")
     terms = ins.split(",")
     acc, lacc = ops[0], terms[0]
@@ -263,7 +280,8 @@ def matmul(x, w):
     shard (``_local_einsum``, each rank's ``@``) where their layouts
     allow."""
     lead = "abcdefgh"[:x.dim() - 1]
-    local = _local_einsum(f"{lead}y,yz->{lead}z", x, w, torch.matmul)
+    local = _local_einsum(f"{lead}y,yz->{lead}z", x, w,
+                          local_fn=torch.matmul)
     return x @ w if local is None else local
 
 
@@ -508,8 +526,12 @@ def attn_out_heads(p, o):
     """o: (B, S, H, E) -> (B, S, D).  DTensors contract (H, E) against
     ``wo`` shard by shard: flattening a ``wo`` sharded on two mesh dims
     gives a strided layout whose shards DTensor sizes by reading an index
-    tensor, a host read that fake tensors refuse."""
-    local = _local_einsum("bshe,hed->bsd", o, p["wo"])
+    tensor, a host read that fake tensors refuse.  Each rank's shards are
+    flattened instead and multiplied as the plain path multiplies (an
+    ``einsum`` of the same shapes rounds apart from it in bf16)."""
+    local = _local_einsum("bshe,hed->bsd", o, p["wo"],
+                          local_fn=lambda a, b: a.flatten(-2)
+                          @ b.flatten(0, 1))
     if local is not None:
         return local
     b, s, h, e = o.shape
