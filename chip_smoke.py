@@ -249,6 +249,7 @@ Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -1388,22 +1389,18 @@ def one_kernel_per_call(dev) -> dict:
 
 
 def profile_steps(label: str, run, dev, steps: int) -> None:
-    """Device kernels per engine step and the device's idle share, from a
-    traced run of ``steps`` steps timed untraced first."""
-    sync(dev)
-    t0 = time.perf_counter()
-    run(dev)
-    sync(dev)
-    wall = time.perf_counter() - t0
+    """Device kernels per engine step and the top kernels of a traced run
+    of ``steps`` steps.  No idle share: the busy time of a traced run over
+    the wall of another, untraced run mixes two runs (the benchmark's
+    ``device.idle_pct`` takes both from one traced block)."""
     prof = device_busy(run, dev)
     if prof["kernels"] == 0:
-        print("profile: torch.profiler saw no device kernels; device busy "
-              "share not measured")
+        print("profile: torch.profiler saw no device kernels; kernels per "
+              "step not measured")
         return
     print(f"profile {label}, {steps} steps: {prof['kernels']} device "
           f"kernels ({prof['kernels'] / steps:.1f} per step), device busy "
-          f"{prof['busy_s']:.6f} s of the untraced {wall:.6f} s: idle share "
-          f"{1 - prof['busy_s'] / wall:.6f}")
+          f"{prof['busy_s']:.6f} s")
     for name, (cnt, us) in prof["top"]:
         print(f"  {us / 1e3:12.3f} ms {cnt:8d}x {name[:90]}")
 
@@ -1411,31 +1408,21 @@ def profile_steps(label: str, run, dev, steps: int) -> None:
 @contextlib.contextmanager
 def path_calls():
     """Counts the Split, Merge and ``Chain.run`` calls made while the block
-    runs: the engine's own, the retry Splits of ``recirc_fn``, and the
-    chain runs of the engine and of each NF called alone (the runner's
-    cycle-cost probes)."""
-    from repro_torch.core import park
-    from repro_torch.nf.chain import Chain
-    from repro_torch.switchsim import engine as E
+    runs, from the spans of ``repro_torch.trace`` (filled in when the block
+    exits): a Split in each ``split`` span and, with the recirculation
+    lane, one more a step (``recirc_fn``'s retry Split, in the step's
+    first ``recirc`` span); a Merge in each ``merge`` span; a chain run in
+    each ``nf_chain`` span and in each ``nf_probe`` span (the runner's
+    cycle-cost probe of one NF alone)."""
+    from repro_torch import trace
 
-    calls = {"split_fn": 0, "merge_fn": 0, "run": 0}
-    saved = [(mod, name, getattr(mod, name))
-             for mod in (park, E) for name in ("split_fn", "merge_fn")]
-    saved.append((Chain, "run", Chain.run))
-
-    def counted(name, fn):
-        def call(*args, **kw):
-            calls[name] += 1
-            return fn(*args, **kw)
-        return call
-
-    for mod, name, fn in saved:
-        setattr(mod, name, counted(name, fn))
-    try:
+    calls: dict[str, int] = {}
+    with trace.recording() as rec:
         yield calls
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+    n = collections.Counter(s.name for s in rec.spans)
+    lane_steps = len({s.parent for s in rec.spans if s.name == "recirc"})
+    calls.update(split_fn=n["split"] + lane_steps, merge_fn=n["merge"],
+                 run=n["nf_chain"] + n["nf_probe"])
 
 
 def check_launches(label, counts, calls, kernels) -> None:
@@ -2239,12 +2226,14 @@ def shadowed(plain, pa_module, shadow: list):
     on the same inputs: per call, the largest |kernel - plain| and the
     largest excess over atol + rtol |plain| (kept on the card until read).
     The comparison's launches are taken back off the kernel's count."""
+    from repro_torch import trace
+
     def attend(q, k_pages, v_pages, pt, lengths):
         out = plain(q, k_pages, v_pages, pt, lengths)
-        before = pa_module.COUNT.launches
+        before = trace.COUNTERS[pa_module.COUNT]
         got = pa_module.paged_decode_attention_cuda(q, k_pages, v_pages, pt,
                                                     lengths)
-        pa_module.COUNT.launches = before
+        trace.COUNTERS[pa_module.COUNT] = before
         d = (got.float() - out.float()).abs()
         shadow.append((d.max(), (d - PAGED_ATOL
                                  - PAGED_RTOL * out.float().abs()).max()))

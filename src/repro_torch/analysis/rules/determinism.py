@@ -17,10 +17,17 @@ In the package only (tests and the harness ``chip_smoke.py`` time and
 seed on purpose):
 
   * the wall clock: ``time.time``, ``time_ns``, ``perf_counter``,
-    ``perf_counter_ns``, ``monotonic``, ``monotonic_ns``.  The reference
-    bans ``time.time`` alone; the port times with ``perf_counter``, which
-    is as much a wall clock when it feeds logic.  Timing-only uses belong
-    in the suppression baseline, where the exemption is visible;
+    ``perf_counter_ns``, ``monotonic``, ``monotonic_ns``,
+    ``clock_gettime``, ``clock_gettime_ns``.  The reference bans
+    ``time.time`` and ``time.time_ns`` alone; the port times with
+    ``perf_counter``, which is as much a wall clock when it feeds logic.
+    Timing-only uses belong in the suppression baseline, where the
+    exemption is visible.  One module is exempt by name: the package's
+    span recorder, ``repro_torch/trace.py`` (the ``trace.py`` beside
+    ``kernels/``).  It reads the clock to stamp spans for a device trace
+    and for nothing else: no result, table or branch of the program
+    depends on what it reads, and its stamps change with every run as the
+    trace's own do;
   * torch's process-global generator: a draw without a ``generator=``
     keyword (``torch.rand``, ``randn``, ``randint``, ``randperm``,
     ``multinomial``, ``normal``, ``bernoulli``, ``poisson``, the
@@ -37,10 +44,11 @@ from __future__ import annotations
 import ast
 
 from repro_torch.analysis.core import (Rule, SourceFile, dotted_name,
-                                       walk_calls)
+                                       port_root, walk_calls)
 
 WALL_CLOCK = frozenset({"time", "time_ns", "perf_counter", "perf_counter_ns",
-                        "monotonic", "monotonic_ns"})
+                        "monotonic", "monotonic_ns", "clock_gettime",
+                        "clock_gettime_ns"})
 TORCH_DRAWS = frozenset({
     "rand", "randn", "randint", "randperm", "multinomial", "normal",
     "bernoulli", "poisson", "rand_like", "randn_like", "randint_like"})
@@ -75,13 +83,25 @@ def _clock_aliases(tree: ast.AST) -> dict[str, str]:
     return out
 
 
+def _is_recorder(f: SourceFile) -> bool:
+    """``f`` is the package's span recorder: ``trace.py`` at the root of
+    the port (beside ``kernels/build.py``)."""
+    return f.parts[-1] == "trace.py" and port_root(f) == f.abspath.parent
+
+
+def _reads_clock(call: ast.Call, clocks: dict[str, str]) -> bool:
+    name = dotted_name(call.func)
+    parts = name.split(".")
+    return name in clocks or (len(parts) == 2 and parts[0] == "time"
+                              and parts[1] in WALL_CLOCK)
+
+
 def _program_finding(call: ast.Call, clocks: dict[str, str]) -> str | None:
     """Why ``call`` draws on process state, or None."""
     name = dotted_name(call.func)
     parts = name.split(".")
     seeded = any(kw.arg == "generator" for kw in call.keywords)
-    if name in clocks or (len(parts) == 2 and parts[0] == "time"
-                          and parts[1] in WALL_CLOCK):
+    if _reads_clock(call, clocks):
         return (f"{clocks.get(name, name)}() feeds wall-clock "
                 "nondeterminism into the program — derive logic from "
                 "seeds/config; timing-only uses belong in the suppression "
@@ -111,6 +131,7 @@ class NondeterminismRule(Rule):
     def check_file(self, f: SourceFile):
         program = not (f.is_test or f.parts[-1] == "chip_smoke.py")
         clocks = _clock_aliases(f.tree) if program else {}
+        recorder = program and _is_recorder(f)
         for call in walk_calls(f.tree):
             if dotted_name(call.func) == "hash":
                 yield f.finding(
@@ -119,6 +140,8 @@ class NondeterminismRule(Rule):
                     "use an explicit mix (e.g. splitmix64, cf. "
                     "nf/maglev.py) so table builds reproduce")
                 continue
+            if recorder and _reads_clock(call, clocks):
+                continue    # the recorder's span stamps: timing only
             why = _program_finding(call, clocks) if program else None
             if why is not None:
                 yield f.finding(call, self.rule_id, why)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.backend.ref import acl_match as acl_match_plain
 from repro_torch.kernels.build import (check, launch_counter, library,
                                        require_cuda, stream_handle)
@@ -37,7 +38,7 @@ def acl_match_cuda(src_ip: torch.Tensor, rules: torch.Tensor) -> torch.Tensor:
                                 out.data_ptr(), ip.numel(), rules.numel(),
                                 stream_handle(dev))
     check("acl_match", rc)
-    COUNT.launches += 1
+    trace.count(COUNT)
     return out
 
 

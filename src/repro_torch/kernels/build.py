@@ -13,7 +13,6 @@ stream, allocate nothing and do not synchronise.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import hashlib
 import os
 import shutil
@@ -22,6 +21,8 @@ import tempfile
 from pathlib import Path
 
 import torch
+
+from repro_torch import trace
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -55,28 +56,26 @@ SIGNATURES = {
 }
 
 
-@dataclasses.dataclass
-class LaunchCount:
-    """Launches of one kernel; its wrapper adds one per launch."""
-
-    name: str
-    launches: int = 0
+LAUNCHES = "launches."   # prefix of the kernels' launch counters
 
 
-COUNTS: dict[str, LaunchCount] = {}
-
-
-def launch_counter(name: str) -> LaunchCount:
-    return COUNTS.setdefault(name, LaunchCount(name))
+def launch_counter(name: str) -> str:
+    """The recorder's counter of ``name``'s launches (listed from now on by
+    ``launch_counts``); its wrapper adds one per launch."""
+    key = LAUNCHES + name
+    trace.COUNTERS.setdefault(key, 0)
+    return key
 
 
 def launch_counts() -> dict[str, int]:
-    return {n: c.launches for n, c in sorted(COUNTS.items())}
+    return {k[len(LAUNCHES):]: v for k, v in sorted(trace.COUNTERS.items())
+            if k.startswith(LAUNCHES)}
 
 
 def reset_launch_counts() -> None:
-    for c in COUNTS.values():
-        c.launches = 0
+    for k in trace.COUNTERS:
+        if k.startswith(LAUNCHES):
+            trace.COUNTERS[k] = 0
 
 
 def nvcc_path() -> str:

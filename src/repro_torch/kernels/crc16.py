@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.backend.ref import crc16_tag as crc16_tag_plain
 from repro_torch.kernels.build import (check, launch_counter, library,
                                        require_cuda, stream_handle)
@@ -36,7 +37,7 @@ def crc16_tag_cuda(ti: torch.Tensor, clk: torch.Tensor) -> torch.Tensor:
                                 out.data_ptr(), ti.numel(),
                                 stream_handle(dev))
     check("crc16_tag", rc)
-    COUNT.launches += 1
+    trace.count(COUNT)
     return out
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.backend.ref import maglev_select as maglev_select_plain
 from repro_torch.kernels.build import (check, launch_counter, library,
                                        require_cuda, stream_handle)
@@ -64,7 +65,7 @@ def maglev_select_cuda(src_ip, dst_ip, src_port, dst_port, proto, table,
         tab.shape[-1], bips.data_ptr(), out.data_ptr(), out.numel() // b, b,
         stream_handle(dev))
     check("maglev_select", rc)
-    COUNT.launches += 1
+    trace.count(COUNT)
     return out
 
 

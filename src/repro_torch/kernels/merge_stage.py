@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from repro_torch import trace
 from repro_torch.backend.ref import merge_stage as merge_stage_plain
 from repro_torch.core.packet import OP_DROP
 from repro_torch.kernels.build import (check, launch_counter, library,
@@ -153,7 +154,7 @@ def merge_stage_cuda(table, meta_exp, meta_clk, meta_len, alive, pp_valid,
         pipes, b, m, w, OP_DROP, blocks, span,
         None if scratch is None else scratch.data_ptr(), stream_handle(dev))
     check("merge_stage", rc)
-    COUNT.launches += 1
+    trace.count(COUNT)
     return new_meta, d, parked, table
 
 

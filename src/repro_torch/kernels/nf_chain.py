@@ -31,6 +31,7 @@ import math
 
 import torch
 
+from repro_torch import trace
 from repro_torch.backend.ref import (NAT_PROBE_DEPTH, NF_FIELDS, NF_KINDS,
                                      NF_WRITES, NatState)
 from repro_torch.backend.ref import nf_chain as nf_chain_plain
@@ -155,7 +156,7 @@ def _launch(fields, dropped, stages, dev):
         _ptr(dropped), drop_out.data_ptr(), ctypes.addressof(desc),
         len(stages), pipes, b, smem, stream_handle(dev))
     check("nf_chain", rc)
-    COUNT.launches += 1
+    trace.count(COUNT)
     return out, drop_out, states
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.backend.ref import \
     paged_decode_attention as paged_decode_attention_plain
 from repro_torch.kernels.build import (check, launch_counter, library,
@@ -183,7 +184,7 @@ def paged_decode_attention_cuda(q, k_pages, v_pages, page_table,
         plan["split_tokens"], splits, plan["stages"], e ** -0.5,
         stream_handle(dev))
     check("paged_attention", rc)
-    COUNT.launches += 1
+    trace.count(COUNT)
     return out
 
 

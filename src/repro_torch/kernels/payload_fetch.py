@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.backend.ref import payload_fetch as payload_fetch_plain
 from repro_torch.kernels.build import (check, launch_counter, library,
                                        require_aligned, require_cuda,
@@ -56,7 +57,7 @@ def payload_fetch_cuda(table, idx, mask):
                                     mask.data_ptr(), out.data_ptr(), pipes,
                                     b, m, w, stream_handle(dev))
     check("payload_fetch", rc)
-    COUNT.launches += 1
+    trace.count(COUNT)
     return out, table
 
 

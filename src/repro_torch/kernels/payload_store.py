@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.backend.ref import payload_store as payload_store_plain
 from repro_torch.kernels.build import (check, launch_counter, library,
                                        require_aligned, require_cuda,
@@ -68,7 +69,7 @@ def payload_store_cuda(table, payload, idx, enb) -> torch.Tensor:
             idx.data_ptr() + lo * 4, enb.data_ptr() + lo, pipes,
             min(MAX_PACKETS, b - lo), b, m, w, stream_handle(dev))
         check("payload_store", rc)
-        COUNT.launches += 1
+        trace.count(COUNT)
     return table
 
 

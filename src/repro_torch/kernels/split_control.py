@@ -32,6 +32,7 @@ import math
 
 import torch
 
+from repro_torch import trace
 from repro_torch.backend.ref import split_control as split_control_plain
 from repro_torch.kernels.build import (check, launch_counter, library,
                                        require_cuda, stream_handle)
@@ -118,7 +119,7 @@ def split_control_cuda(m, max_exp, max_clk, min_park_len, pass_bytes,
         span, None if scratch is None else scratch.data_ptr(),
         stream_handle(dev))
     check("split_control", rc)
-    COUNT.launches += 1
+    trace.count(COUNT)
     return regs + meta, d
 
 

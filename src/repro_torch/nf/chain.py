@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import trace
 from repro_torch.backend.ref import NF_FIELDS
 from repro_torch.backend.registry import dispatch
 from repro_torch.core.packet import OP_DROP, PacketBatch, dead_batch
@@ -86,12 +87,14 @@ class Chain:
     def cycle_costs(self, backend=None,
                     device=DEFAULT_DEVICE) -> tuple[float, ...]:
         """Per-NF CPU cycle costs in chain order, probed by running each NF
-        on one dead packet through the same backend dispatch."""
+        on one dead packet through the same backend dispatch (each probe
+        an ``nf_probe`` span of the recorder, ``repro_torch.trace``)."""
         probe = dead_batch(1, 16, device=device)
         costs = []
         for nf in self.nfs:
-            _, _, _, cycles = nf(nf.init_state(device), probe,
-                                 backend=backend)
+            with trace.span("nf_probe"):
+                _, _, _, cycles = nf(nf.init_state(device), probe,
+                                     backend=backend)
             costs.append(float(cycles))
         return tuple(costs)
 

@@ -23,6 +23,12 @@ Per-step per-link tallies stay on the device as (P,) tensors and come to
 the host once, at the end of the run, summed in int64.  The step index is
 a Python int, so nothing in the loop waits for the device.
 
+The recorder (``repro_torch.trace``) sees a ``run_pipes`` call as a root
+span holding ``setup`` (entry to the first step: the fault masks and the
+fresh carry on the device), one ``step`` span a step (``scan_step``) and
+``finish`` (the tallies and counters to the host, the per-pipe results);
+every wait for the card on the way counts one ``host_syncs``.
+
 Results are bit-identical to ``simulate.simulate_loop`` on the same trace
 and to the reference engine on the same numpy inputs.
 """
@@ -36,6 +42,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.backend.config import as_config
 from repro_torch.core import counters as C
 from repro_torch.core.packet import (FIELDS, PacketBatch, dead_batch,
@@ -126,48 +133,58 @@ def scan_step(cfg: ParkConfig, chain: Chain, window: int,
               explicit_drops: bool, backend, collect_sent: bool,
               recirc: int):
     """The per-step body: (carry, (chunk, server_up, lb_up), drain) ->
-    (carry, per-step ys).  ``recirc`` is the lane width (0 = lane off)."""
+    (carry, per-step ys).  ``recirc`` is the lane width (0 = lane off).
 
-    def step(carry, xs, drain):
+    A step is a ``step`` span of the recorder (``repro_torch.trace``)
+    holding one ``split``, ``nf_chain`` and ``merge`` span, and with the
+    lane two ``recirc`` spans: the second pass before Split, the lane's
+    admission after it."""
+
+    def body(carry, xs, drain):
         state, cstates, ring, lane, t = carry
         cin, s_up, l_up = xs
         wire_b = _alive_bytes(cin)
         wire_p = _alive_pkts(cin)
         if recirc:
-            # second pass for packets re-injected at the previous step
-            state, rout = recirc_fn(cfg, state, lane, backend=backend)
-        state, out = split_fn(cfg, state, cin, backend=backend)
+            with trace.span("recirc"):
+                # second pass for packets re-injected at the previous step
+                state, rout = recirc_fn(cfg, state, lane, backend=backend)
+        with trace.span("split"):
+            state, out = split_fn(cfg, state, cin, backend=backend)
         if recirc:
-            out, lane, n_denied = recirc_select(cfg, out, recirc)
-            state = dataclasses.replace(
-                state, counters=C.bump(state.counters,
-                                       "recirc_budget_drops", n_denied))
-            rec_b, rec_p = _alive_bytes(lane), _alive_pkts(lane)
-            nf_in = _cat_rows(rout, out)
+            with trace.span("recirc"):
+                out, lane, n_denied = recirc_select(cfg, out, recirc)
+                state = dataclasses.replace(
+                    state, counters=C.bump(state.counters,
+                                           "recirc_budget_drops", n_denied))
+                rec_b, rec_p = _alive_bytes(lane), _alive_pkts(lane)
+                nf_in = _cat_rows(rout, out)
         else:
             rec_b = rec_p = torch.zeros_like(wire_b)
             nf_in = out
         # the switch still transmits to a dead server: tally before the kill
         to_srv_p, to_srv_b = _alive_pkts(nf_in), _alive_bytes(nf_in)
-        killed = nf_in.alive & ~s_up[..., None]
-        state = dataclasses.replace(
-            state, counters=C.bump(state.counters, "fault_drops",
-                                   killed.sum(-1)))
-        srv_in = nf_in.replace(alive=nf_in.alive & s_up[..., None])
-        cstates, nf_out, dropped, _cycles = chain.run(
-            cstates, srv_in, backend=backend, ctx={"lb_up": l_up})
-        if explicit_drops:
-            nf_out = to_explicit_drops(nf_out, dropped)
-        # drain-vs-drop: with drain, killed parked packets come back as
-        # OP=drop notifications that free their slots at Merge
-        nf_out = to_explicit_drops(nf_out, killed & drain[..., None])
+        with trace.span("nf_chain"):
+            killed = nf_in.alive & ~s_up[..., None]
+            state = dataclasses.replace(
+                state, counters=C.bump(state.counters, "fault_drops",
+                                       killed.sum(-1)))
+            srv_in = nf_in.replace(alive=nf_in.alive & s_up[..., None])
+            cstates, nf_out, dropped, _cycles = chain.run(
+                cstates, srv_in, backend=backend, ctx={"lb_up": l_up})
+            if explicit_drops:
+                nf_out = to_explicit_drops(nf_out, dropped)
+            # drain-vs-drop: with drain, killed parked packets come back as
+            # OP=drop notifications that free their slots at Merge
+            nf_out = to_explicit_drops(nf_out, killed & drain[..., None])
         if window == 0:
             returning = nf_out
         else:
             slot = t % window
             returning = ring[slot]
             ring = ring[:slot] + [nf_out] + ring[slot + 1:]
-        state, m = merge_fn(cfg, state, returning, backend=backend)
+        with trace.span("merge"):
+            state, m = merge_fn(cfg, state, returning, backend=backend)
         ys = dict(
             merged=m, occ=occupancy(state),
             wire_pkts=wire_p, wire_bytes=wire_b,
@@ -181,6 +198,10 @@ def scan_step(cfg: ParkConfig, chain: Chain, window: int,
         if collect_sent:
             ys["sent"] = nf_in
         return (state, cstates, ring, lane, t + 1), ys
+
+    def step(carry, xs, drain):
+        with trace.span("step"):
+            return body(carry, xs, drain)
 
     return step
 
@@ -241,7 +262,7 @@ class _ShardRun:
 
     def finish(self, chain):
         """(state, per-pipe NF counters, merged, sent, host ys)."""
-        host = {k: torch.stack(v, dim=1).cpu().numpy().astype(np.int64)
+        host = {k: _to_host(torch.stack(v, dim=1)).numpy().astype(np.int64)
                 for k, v in self.tallies.items()}
         state, cstates = self.carry[0], self.carry[1]
         return (state,
@@ -250,20 +271,20 @@ class _ShardRun:
                 _stack_time(self.sent) if self.collect_sent else None, host)
 
 
-def _execute(cfg, chain, shards, window, explicit_drops, backend,
-             collect_sent):
-    """Run the step body over each shard's (P_i, T, chunk, ...) trace plus
-    the drain padding.  ``shards`` is a list of (traces on the shard's
-    device, its fault masks).  The shards run in lockstep: step t of every
-    shard is issued before step t + 1 of any, and nothing waits for a
-    device until the tallies come to the host at the end.  Returns per
-    shard (state, per-pipe NF counters, merged, sent, host ys)."""
-    runs = [_ShardRun(cfg, chain, traces, fa, window, explicit_drops,
-                      backend, collect_sent) for traces, fa in shards]
+def _execute(runs: list[_ShardRun]) -> None:
+    """Issue every step of each shard's (P_i, T, chunk, ...) trace plus the
+    drain padding.  The shards run in lockstep: step t of every shard is
+    issued before step t + 1 of any, and nothing waits for a device until
+    the tallies come to the host at the end."""
     for t in range(runs[0].steps + runs[0].pad):
         for run in runs:
             run.step(t)
-    return [run.finish(chain) for run in runs]
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host: a wait for the card, counted as ``host_syncs``."""
+    trace.count("host_syncs")
+    return t.cpu()
 
 
 def _per_pipe_telemetry(ys: dict) -> list[LinkTelemetry]:
@@ -277,7 +298,7 @@ def _per_pipe_nf_counters(chain: Chain, cstates,
                           pipes: int) -> list[dict[str, int]]:
     """One dict of NF-private counters per pipe (empty dicts for a chain
     that keeps none)."""
-    host = {k: v.cpu().tolist()
+    host = {k: _to_host(v).tolist()
             for k, v in chain.state_counters(cstates).items()}
     return [{k: int(v[p]) for k, v in host.items()} for p in range(pipes)]
 
@@ -321,23 +342,35 @@ def run_pipes(cfg: ParkConfig, chain: Chain, traces, window: int = 1,
     to 1 with a warning when the pipe count does not divide it or fewer
     logical devices are visible.
     """
-    backend = as_config(backend)
-    dev = resolve_device(device)
-    traces = _as_pipe_traces(traces)
-    pipes, steps, _ = traces.src_ip.shape
-    fa = F.resolve(faults, pipes=pipes, steps=steps)
-    if devices != 1:
-        devices = fabric.resolve_devices(pipes, devices, dev)
-    shards = fabric.shard_over_switch(traces, fa, devices, dev)
+    with trace.span(trace.ROOT):
+        with trace.span("setup"):
+            backend = as_config(backend)
+            dev = resolve_device(device)
+            traces = _as_pipe_traces(traces)
+            pipes, steps, _ = traces.src_ip.shape
+            fa = F.resolve(faults, pipes=pipes, steps=steps)
+            if devices != 1:
+                devices = fabric.resolve_devices(pipes, devices, dev)
+            runs = [_ShardRun(cfg, chain, shard, shard_fa, window,
+                              explicit_drops, backend, collect_sent)
+                    for shard, shard_fa in fabric.shard_over_switch(
+                        traces, fa, devices, dev)]
+        _execute(runs)
+        with trace.span("finish"):
+            return _pipes_result(chain, runs, pipes, dev)
+
+
+def _pipes_result(chain: Chain, runs: list[_ShardRun], pipes: int,
+                  dev: torch.device) -> PipesResult:
+    """The shards' outputs on the host and on ``dev``, in pipe order."""
     state, per_nf, merged, sent, ys = (
-        fabric.gather(list(part), dev) for part in zip(*_execute(
-            cfg, chain, shards, window, explicit_drops, backend,
-            collect_sent)))
+        fabric.gather(list(part), dev)
+        for part in zip(*(run.finish(chain) for run in runs)))
     per_tel = _per_pipe_telemetry(ys)
     tel = sum_telemetry(per_tel)
     occ_pp = ys["occ"]
     per_occ = [int(v) for v in occ_pp.max(axis=-1)]
-    ctr = state.counters.cpu().numpy().astype(np.int64)
+    ctr = _to_host(state.counters).numpy().astype(np.int64)
     agg = dict(zip(C.NAMES, (int(v) for v in ctr.sum(axis=0))))
     per_pipe = [dict(zip(C.NAMES, (int(v) for v in ctr[p])))
                 for p in range(pipes)]

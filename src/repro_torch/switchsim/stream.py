@@ -50,8 +50,9 @@ from repro_torch.core.packet import dead_batch, map_fields
 from repro_torch.core.park import ParkConfig, ParkState
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.nf.chain import Chain
-from repro_torch.switchsim.engine import (_per_pipe_nf_counters, init_carry,
-                                          recirc_slots, run_pipes, scan_step)
+from repro_torch.switchsim.engine import (_per_pipe_nf_counters, _to_host,
+                                          init_carry, recirc_slots, run_pipes,
+                                          scan_step)
 from repro_torch.switchsim.results import StreamResult
 from repro_torch.switchsim.telemetry import TEL_FIELDS, LinkTelemetry
 from repro_torch.traffic.stream import (MASK32, MaterializedSource,
@@ -161,7 +162,7 @@ class _Segments:
             occs.append(ys["occ"])
         tel = torch.stack(tels).sum(0)
         occ = torch.cat(occs).to(torch.int64)
-        return torch.cat([tel, occ]).cpu().numpy()
+        return _to_host(torch.cat([tel, occ])).numpy()
 
 
 def run_stream(
@@ -250,7 +251,8 @@ def run_stream(
         telemetry=tel,
         nf_counters=_per_pipe_nf_counters(chain, cstates, 1)[0],
         peak_occupancy=peak,
-        latency=_quantiles_us(seg.vals.cpu().numpy(), int(seg.n)),
+        latency=_quantiles_us(_to_host(seg.vals).numpy(),
+                              int(_to_host(seg.n))),
         occ_segments=occ_segments,
         steps=source.steps,
         segments=n_segments,

@@ -239,6 +239,25 @@ BAD = {
         """}, [("launch/run.py", "time.perf_counter()"),
                ("launch/run.py", "time.perf_counter()"),
                ("launch/run.py", "time.monotonic()")]),
+    # RPL003: the span recorder at the port's root is the one module that
+    # may read the clock; any other module, a trace.py below the root
+    # included, is flagged, through an alias too
+    "rpl003-clock-outside-the-recorder": ("RPL003", {
+        "switchsim/trace.py": """\
+        import time
+
+        def stamp():
+            return time.clock_gettime_ns(time.CLOCK_REALTIME)
+        """,
+        "nf/fw.py": """\
+        from time import clock_gettime_ns as now
+        import time
+
+        def stamp():
+            return now(0), time.time_ns()
+        """}, [("switchsim/trace.py", "time.clock_gettime_ns()"),
+               ("nf/fw.py", "time.clock_gettime_ns()"),
+               ("nf/fw.py", "time.time_ns()")]),
     "rpl003-global-rng": ("RPL003", {"traffic/gen.py": """\
         import numpy as np
         import torch
@@ -381,6 +400,14 @@ GOOD = {
         def test_timing():
             t0 = time.perf_counter()
             assert time.perf_counter() >= t0
+        """},
+    "rpl003-the-recorder-reads-the-clock": {"trace.py": """\
+        import time
+        from time import clock_gettime_ns
+
+        def stamp():
+            return (time.clock_gettime_ns(time.CLOCK_REALTIME),
+                    clock_gettime_ns(0), time.time_ns())
         """},
     "rpl003-seeded-generators": {"traffic/gen.py": """\
         import numpy as np

@@ -15,6 +15,7 @@ from repro.backend import dispatch as jdispatch  # noqa: E402
 from repro.core import packet as JK  # noqa: E402
 from repro.core import park as JP  # noqa: E402
 from repro_torch import convert as CV  # noqa: E402
+from repro_torch import trace  # noqa: E402
 from repro_torch.backend import dispatch as tdispatch  # noqa: E402
 from repro_torch.core.packet import OP_DROP  # noqa: E402
 from repro_torch.core.park import ParkConfig  # noqa: E402
@@ -571,7 +572,8 @@ def _fake_library(monkeypatch, module, calls):
     monkeypatch.setattr(module, "require_cuda",
                         lambda name, *t: torch.device("cpu"))
     monkeypatch.setattr(module, "stream_handle", lambda dev: 0)
-    monkeypatch.setattr(module.COUNT, "launches", module.COUNT.launches)
+    monkeypatch.setitem(trace.COUNTERS, module.COUNT,
+                        trace.COUNTERS[module.COUNT])
 
 
 def test_split_control_binding_matches_its_signature(monkeypatch):
@@ -579,7 +581,7 @@ def test_split_control_binding_matches_its_signature(monkeypatch):
     from repro_torch.kernels import split_control as SC
     calls = []
     _fake_library(monkeypatch, SC, calls)
-    before = SC.COUNT.launches
+    before = trace.COUNTERS[SC.COUNT]
     m, b = 16, 8
     z = torch.zeros(2, dtype=torch.int32)
     meta = [torch.zeros(2, m, dtype=torch.int32) for _ in range(3)]
@@ -595,7 +597,7 @@ def test_split_control_binding_matches_its_signature(monkeypatch):
     assert args[20:29] == (2, b, m, 1 << 16, 2, 160, 160,
                            *SC.slot_ranges(m))
     assert args[29] is None                       # shared memory: no scratch
-    assert SC.COUNT.launches == before + 1          # one launch per call
+    assert trace.COUNTERS[SC.COUNT] == before + 1  # one launch per call
     assert tuple(ti.shape) == (2,) and tuple(new_meta[0].shape) == (2, m)
     assert [(k, d[k].dtype) for k in d] == list(SC.DECISIONS)
     assert all(tuple(v.shape) == (2, b) for v in d.values())
@@ -626,13 +628,13 @@ def test_split_control_cuda_passes_device_scratch_past_its_shared_memory(
         return out
 
     monkeypatch.setattr(SC.torch, "empty", empty)
-    before = SC.COUNT.launches
+    before = trace.COUNTERS[SC.COUNT]
     z = torch.zeros(pipes, dtype=torch.int32)
     meta = [torch.zeros(pipes, m, dtype=torch.int32) for _ in range(3)]
     SC.split_control_cuda(m, 2, 1 << 16, 160, 160, z, z, *meta,
                           torch.ones(pipes, b, dtype=torch.bool),
                           torch.full((pipes, b), 200, dtype=torch.int32))
-    assert SC.COUNT.launches == before + 1
+    assert trace.COUNTERS[SC.COUNT] == before + 1
     args = calls[0][1]
     blocks = SC.slot_ranges(m)[0]
     assert SC.MAX_SHARED == 227 * 1024 - 32
@@ -654,14 +656,14 @@ def test_split_control_cuda_raises_past_its_32_bit_tagger(m, b, max_clk):
     clock past 2^31 (or of 1, with nothing to wrap) raises before any
     launch or allocation."""
     from repro_torch.kernels import split_control as SC
-    before = SC.COUNT.launches
+    before = trace.COUNTERS[SC.COUNT]
     z = torch.zeros((), dtype=torch.int32)
     meta = [torch.zeros(1, dtype=torch.int32).expand(m) for _ in range(3)]
     with pytest.raises(ValueError, match="32-bit tagger"):
         SC.split_control_cuda(m, 2, max_clk, 160, 160, z, z, *meta,
                               torch.ones(b, dtype=torch.bool),
                               torch.full((b,), 200, dtype=torch.int32))
-    assert SC.COUNT.launches == before
+    assert trace.COUNTERS[SC.COUNT] == before
 
 
 def test_merge_stage_binding_matches_its_signature(monkeypatch):
@@ -669,7 +671,7 @@ def test_merge_stage_binding_matches_its_signature(monkeypatch):
     from repro_torch.kernels import merge_stage as MS
     calls = []
     _fake_library(monkeypatch, MS, calls)
-    before = MS.COUNT.launches
+    before = trace.COUNTERS[MS.COUNT]
     m, b = 16, 8
     table = torch.zeros(1, m, W, dtype=torch.uint8)
     meta = [torch.zeros(1, m, dtype=torch.int32) for _ in range(3)]
@@ -683,7 +685,7 @@ def test_merge_stage_binding_matches_its_signature(monkeypatch):
     # pipes, b, m, width, op, then the blocks a pipe and the slots of each
     assert args[21:28] == (1, b, m, W, OP_DROP, *MS.slot_ranges(m))
     assert args[28] is None                       # shared memory: no scratch
-    assert MS.COUNT.launches == before + 1
+    assert trace.COUNTERS[MS.COUNT] == before + 1
     assert tab is table and tuple(parked.shape) == (1, b, W)
     assert [(k, d[k].dtype) for k in d] == list(MS.DECISIONS)
 
@@ -743,13 +745,13 @@ def test_merge_stage_cuda_passes_device_scratch_past_its_shared_memory(
         return out
 
     monkeypatch.setattr(MS.torch, "empty", empty)
-    before = MS.COUNT.launches
+    before = trace.COUNTERS[MS.COUNT]
     table = torch.zeros(pipes, m, W, dtype=torch.uint8)
     meta = [torch.zeros(pipes, m, dtype=torch.int32) for _ in range(3)]
     flag = torch.ones(pipes, b, dtype=torch.bool)
     z = torch.zeros(pipes, b, dtype=torch.int32)
     MS.merge_stage_cuda(table, *meta, flag, flag, z, z, z, z, z)
-    assert MS.COUNT.launches == before + 1
+    assert trace.COUNTERS[MS.COUNT] == before + 1
     args = calls[0][1]
     blocks = MS.slot_ranges(m)[0]
     assert past == (MS.shared_bytes(b, m) > MS.MAX_SHARED)

@@ -22,6 +22,7 @@ from repro.nf.macswap import MacSwap as JMac  # noqa: E402
 from repro.nf.maglev import MaglevLB as JLb  # noqa: E402
 from repro.nf.nat import Nat as JNat  # noqa: E402
 from repro_torch import convert as CV  # noqa: E402
+from repro_torch import trace  # noqa: E402
 from repro_torch.backend import dispatch as tdispatch  # noqa: E402
 from repro_torch.backend import ref as R  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
@@ -500,7 +501,8 @@ def _fake_library(monkeypatch, module, calls):
     monkeypatch.setattr(module, "require_cuda",
                         lambda name, *t: torch.device("cpu"))
     monkeypatch.setattr(module, "stream_handle", lambda dev: 0)
-    monkeypatch.setattr(module.COUNT, "launches", module.COUNT.launches)
+    monkeypatch.setitem(trace.COUNTERS, module.COUNT,
+                        trace.COUNTERS[module.COUNT])
 
 
 def _stages_and_fields(kinds, cap, pipes, b):
@@ -522,7 +524,7 @@ def test_nf_chain_binding_matches_its_signature(monkeypatch, cap, smem):
     from repro_torch.kernels import nf_chain as NC
     calls = []
     _fake_library(monkeypatch, NC, calls)
-    before = NC.COUNT.launches
+    before = trace.COUNTERS[NC.COUNT]
     fields, stages = _stages_and_fields(("fw", "nat", "lb"), cap, 2, 8)
     out, dropped, states = NC.nf_chain_cuda(fields, stages)
     assert [c[0] for c in calls] == ["pp_nf_chain"]
@@ -538,7 +540,7 @@ def test_nf_chain_binding_matches_its_signature(monkeypatch, cap, smem):
     assert desc[1][9:14] == [cap, nat.base_port, nat.max_exp, nat.nat_ip,
                              int(smem > 0)]
     assert desc[2][9:11] == [251, 1]               # T, one flag per pipe
-    assert NC.COUNT.launches == before + 1
+    assert trace.COUNTERS[NC.COUNT] == before + 1
     assert [t.dtype for t in out] == [torch.bool] + [torch.int32] * 7
     assert dropped.dtype == torch.bool and tuple(dropped.shape) == (2, 8)
     assert tuple(states[1][0].shape) == (2, cap)
@@ -549,7 +551,7 @@ def test_nf_chain_cuda_splits_a_long_chain_into_launches(monkeypatch):
     from repro_torch.kernels import nf_chain as NC
     calls = []
     _fake_library(monkeypatch, NC, calls)
-    before = NC.COUNT.launches
+    before = trace.COUNTERS[NC.COUNT]
     kinds = ("fw", "nat", "lb", "macswap") * 3
     fields, stages = _stages_and_fields(kinds, 16, 2, 8)
     NC.nf_chain_cuda(fields, stages)
@@ -557,7 +559,7 @@ def test_nf_chain_cuda_splits_a_long_chain_into_launches(monkeypatch):
     first, second = calls[0][1], calls[1][1]
     assert second[:8] == first[8:16]   # the fields the first launch wrote
     assert second[16] == first[17]     # and its drops
-    assert NC.COUNT.launches == before + 2
+    assert trace.COUNTERS[NC.COUNT] == before + 2
     # a chain without stages writes only the drops, in one launch: every
     # field is its own output
     calls.clear()

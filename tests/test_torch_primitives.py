@@ -9,6 +9,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.backend import dispatch as jdispatch  # noqa: E402
+from repro_torch import trace  # noqa: E402
 from repro_torch.backend import BackendConfig  # noqa: E402
 from repro_torch.backend import dispatch as tdispatch  # noqa: E402
 from repro_torch.backend import ref as R  # noqa: E402
@@ -291,7 +292,8 @@ def _fake_library(monkeypatch, module, calls):
     monkeypatch.setattr(module, "require_cuda",
                         lambda name, *t: torch.device("cpu"))
     monkeypatch.setattr(module, "stream_handle", lambda dev: 0)
-    monkeypatch.setattr(module.COUNT, "launches", module.COUNT.launches)
+    monkeypatch.setitem(trace.COUNTERS, module.COUNT,
+                        trace.COUNTERS[module.COUNT])
 
 
 def test_payload_store_binding_matches_its_signature(monkeypatch):
@@ -299,14 +301,14 @@ def test_payload_store_binding_matches_its_signature(monkeypatch):
     from repro_torch.kernels import payload_store as PS
     calls = []
     _fake_library(monkeypatch, PS, calls)
-    before = PS.COUNT.launches
+    before = trace.COUNTERS[PS.COUNT]
     table, payload, idx, enb = _cpu_args("payload_store")
     PS.payload_store_cuda(table.view(1, 4, 16), payload.view(1, 8, 16),
                           idx.view(1, 8), enb.view(1, 8))
     assert [c[0] for c in calls] == ["pp_payload_store"]
     assert len(calls[0][1]) == len(build.SIGNATURES["pp_payload_store"]) == 10
     assert calls[0][1][4:9] == (1, 8, 8, 4, 16)  # pipes, b, stride, m, width
-    assert PS.COUNT.launches == before + 1          # one launch per call
+    assert trace.COUNTERS[PS.COUNT] == before + 1  # one launch per call
 
 
 @pytest.mark.parametrize("pipes,b", [(1, 16384), (3, 2 * 12288 + 5),
@@ -319,7 +321,7 @@ def test_payload_store_cuda_tiles_past_max_packets(monkeypatch, pipes, b):
     from repro_torch.kernels import payload_store as PS
     calls = []
     _fake_library(monkeypatch, PS, calls)
-    before = PS.COUNT.launches
+    before = trace.COUNTERS[PS.COUNT]
     m, w = 64, 16
     table = torch.zeros(pipes, m, w, dtype=torch.uint8)
     payload = torch.zeros(pipes, b, w, dtype=torch.uint8)
@@ -328,7 +330,7 @@ def test_payload_store_cuda_tiles_past_max_packets(monkeypatch, pipes, b):
     assert PS.payload_store_cuda(table, payload, idx, enb) is table
     tiles = list(range(0, b, PS.MAX_PACKETS))
     assert [c[0] for c in calls] == ["pp_payload_store"] * len(tiles)
-    assert PS.COUNT.launches == before + len(tiles)
+    assert trace.COUNTERS[PS.COUNT] == before + len(tiles)
     for lo, (_, args) in zip(tiles, calls):
         assert args[0] == table.data_ptr()
         assert args[1] == payload.data_ptr() + lo * w
@@ -343,7 +345,7 @@ def test_paged_attention_binding_matches_its_signature(monkeypatch):
     calls = []
     _fake_library(monkeypatch, PA, calls)
     monkeypatch.setattr(PA, "_TICKETS", {})
-    before = PA.COUNT.launches
+    before = trace.COUNTERS[PA.COUNT]
     q = torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16)
     pages = torch.zeros(16, 16, 2, 128, dtype=torch.bfloat16)
     pt = torch.arange(12, dtype=torch.int32)[None]
@@ -355,11 +357,11 @@ def test_paged_attention_binding_matches_its_signature(monkeypatch):
     # dtype, b, K, G, E, pages, page, MP, split_tokens, splits, stages
     assert args[9:20] == (0, 1, 2, 8, 128, 16, 16, 12, 192, 1, 2)
     assert args[6:9] == (None, None, None)          # one split: no scratch
-    assert PA.COUNT.launches == before + 1
+    assert trace.COUNTERS[PA.COUNT] == before + 1
     # 32 splits: scratch and tickets
     calls.clear()
     pt = torch.arange(128, dtype=torch.int32)[None] % 16
     PA.paged_decode_attention_cuda(q, pages, pages, pt, ln)
     assert calls[0][1][17:20] == (64, 32, 1)
     assert all(a is not None for a in calls[0][1][6:9])
-    assert PA.COUNT.launches == before + 2
+    assert trace.COUNTERS[PA.COUNT] == before + 2
