@@ -23,7 +23,13 @@ Phases (any failure raises, so the script exits non-zero):
    duplicate tags and a second match with pp_clk 0 after a free; and for
    the kernel's blocks of slot ranges, contested slots on both sides of a
    range boundary, M 4100 (15 ranges of 288 slots) and every packet on one
-   slot (each case prints its blocks a pipe, N).  Split's kernel also at
+   slot (each case prints its blocks a pipe, N).  Merge's packet
+   transformation (``merge_payload``) is held exactly against its plain
+   version (payload, length, alive, pp_valid and the five pp_* fields) at
+   both benchmark cells' shapes (256 x 256 and 512 x 256 packets of pmax
+   1450, W 160 and 352), at pmax 100 and 300 below W, at pmax 13, with two
+   pipe axes and none, on strided rows, and at B = 0 (no launch), its
+   inputs unchanged.  Split's kernel also at
    1 x 4096 packets over M 64 (each slot walked dozens of times, also
    against ``ref.split_rounds``), M 4100, TI at M - 1 with CLK at its
    wrap, and past its shared memory (its packet lists in a device-memory
@@ -55,7 +61,8 @@ Phases (any failure raises, so the script exits non-zero):
    ``payload_store`` one per tile).  Each
    kernel is timed (median of 30 launches, CUDA events; ``split_control``
    also at the stream's 1 x 256 and 1 x 64 and the chain's 2 x 256,
-   ``SPLIT_SHAPES``) beside its plain version, one PyTorch library call
+   ``SPLIT_SHAPES``; ``merge_payload`` at the two benchmark cells'
+   shapes) beside its plain version, one PyTorch library call
    where one computes the same function, and its bound: the larger of
    the bytes it must move over
    3.35 TB/s and its 32-bit operations over 67 T/s.
@@ -71,10 +78,10 @@ Phases (any failure raises, so the script exits non-zero):
    of every pipe's NAT call); counters, telemetry, NF counters,
    occupancy and merged wire bytes must be identical, the goodput gain
    positive, and every kernel of the path launched during each card run:
-   ``split_control`` once per Split call, ``merge_stage`` once per Merge
-   call and ``nf_chain`` once per ``Chain.run`` call; the standalone
-   ``crc16`` and ``payload_fetch`` never (their code runs inside the first
-   two), nor ``acl_match`` and ``maglev`` (theirs runs inside
+   ``split_control`` once per Split call, ``merge_stage`` and
+   ``merge_payload`` once per Merge call and ``nf_chain`` once per
+   ``Chain.run`` call; the standalone ``crc16`` and ``payload_fetch``
+   never (their code runs inside the first two), nor ``acl_match`` and ``maglev`` (theirs runs inside
    ``nf_chain``).
 5. The §7 chain: the ``chain`` scenario family at full geometry (FW ->
    NAT -> Maglev LB; datacenter and enterprise traffic from a 1024-flow
@@ -116,8 +123,9 @@ Phases (any failure raises, so the script exits non-zero):
    untraced and then repeated under ``torch.profiler``, give device
    kernels per step and the device's busy time against the untraced wall
    time.  One traced call of
-   ``split_control``, ``merge_stage``, ``payload_store``, ``nf_chain`` and
-   of ``paged_attention`` (engine and batched shapes) must each run
+   ``split_control``, ``merge_stage``, ``payload_store``, ``nf_chain``,
+   ``merge_payload`` (256 x 256 x 1450) and of ``paged_attention``
+   (engine and batched shapes) must each run
    exactly one device kernel (``split_control`` at each of
    ``SPLIT_SHAPES``); its duration goes into the kernels line
    (``profiler_ms``).
@@ -307,13 +315,15 @@ REPLACES = {
     # the NF chain's kernel runs acl_match's and maglev's device code
     "nf_chain": "src/repro/kernels/acl_match/kernel.py:28, "
                 "src/repro/kernels/maglev/kernel.py:37",
+    # Merge's packet transformation: no TPU kernel, the reference's jnp
+    "merge_payload": "none (jnp in src/repro/core/park.py:416 merge_fn)",
 }
 # the kernels of the Split -> FW -> NAT -> Merge path (phase 4), and of the
 # §7 chain (phase 5); the standalone crc16 and payload_fetch kernels are off
 # those paths (their code runs inside split_control and merge_stage), and so
 # are acl_match and maglev (their code runs inside nf_chain)
 DATAPLANE_KERNELS = ("split_control", "payload_store", "merge_stage",
-                     "nf_chain")
+                     "nf_chain", "merge_payload")
 CHAIN_KERNELS = DATAPLANE_KERNELS
 INSIDE_CONTROL = ("crc16", "payload_fetch")
 INSIDE_CHAIN = ("acl_match", "maglev")
@@ -537,6 +547,7 @@ def check_kernels(dev) -> dict:
                      bips),
                 R.maglev_select(*fields, table, bips)))
     err["split_control"], err["merge_stage"] = check_control(gen, dev)
+    err["merge_payload"] = check_merge_payload(dev)
     err["nf_chain"] = check_nf_chain(gen, dev)
     big = check_past_limits(gen, dev)
     for name, r in big.items():
@@ -546,8 +557,8 @@ def check_kernels(dev) -> dict:
           "(B 256/264, W 160/352, R 1/20, duplicates, masked, out of range, "
           "every packet on one row, one row fetched twice; maglev (P, B) "
           "2x256/2x320/1x264, shared and per-pipe tables of 251 and 65537, "
-          "dead rows; split_control, merge_stage and nf_chain as listed "
-          "above)")
+          "dead rows; split_control, merge_stage, merge_payload and "
+          "nf_chain as listed above)")
     return err, big
 
 
@@ -787,6 +798,123 @@ def same_all(label, got, want) -> int:
                              f"version {len(want)}")
     return max(must_equal(f"{label} output {k}", g, v)
                for k, (g, v) in enumerate(zip(got, want)))
+
+
+# merge_payload at the benchmark cells' shapes (pod_fw_nat.enterprise,
+# pod_chain_dc.datacenter): label, pipes, B, pmax, W
+MERGE_PAYLOAD_CELLS = (("256x256 pmax 1450 W160", 256, 256, 1450, 160),
+                       ("512x256 pmax 1450 W352", 512, 256, 1450, 352))
+
+
+def merge_payload_args(gen, lead, b, pmax, w, dev) -> list:
+    """``merge_payload``'s arguments, with decisions as ``merge_stage``
+    makes them: 30 % of the packets header-less returns (disabled), 45 %
+    matched (a tenth of them explicit drops), 5 % premature, 5 % CRC
+    failures, the rest none of these.  A matched packet carries a parked
+    prefix of 0..W bytes (zeros in the parked row otherwise) and what is
+    left of 0..pmax bytes; in every pipe packet 0 ends exactly at pmax
+    after its prefix is put back, packet 1 matches with a prefix of 0
+    bytes and packet 2 returns header-less with a full payload."""
+    shape = lead + (b,)
+    u = torch.rand(shape, generator=gen)
+    disabled, matched = u < 0.3, (u >= 0.3) & (u < 0.75)
+    premature, crc_fail = (u >= 0.75) & (u < 0.8), (u >= 0.8) & (u < 0.85)
+    drop = matched & (torch.rand(shape, generator=gen) < 0.1)
+    park_len = torch.randint(0, w + 1, shape, generator=gen,
+                             dtype=torch.int32)
+    total = torch.randint(0, pmax + 1, shape, generator=gen,
+                          dtype=torch.int32)
+    if b >= 3:
+        for x, v in ((matched, (True, True, False)), (drop, (False,) * 3),
+                     (disabled, (False, False, True)),
+                     (premature, (False,) * 3), (crc_fail, (False,) * 3)):
+            x[..., :3] = torch.tensor(v)
+        park_len[..., 0] = min(w, pmax)
+        park_len[..., 1] = 0
+        total[..., :3] = pmax
+    park_len = torch.where(matched, park_len, 0)
+    plen = torch.where(matched & ~drop, torch.clamp(total - park_len, min=0),
+                       total).to(torch.int32)
+    alive = torch.rand(shape, generator=gen) < 0.95
+    valid = torch.rand(shape, generator=gen) < 0.9
+    fields = [torch.randint(-(1 << 31), (1 << 31) - 1, shape, generator=gen,
+                            dtype=torch.int32) for _ in range(5)]
+    payload = torch.randint(0, 256, shape + (pmax,), generator=gen,
+                            dtype=torch.uint8)
+    parked = torch.randint(0, 256, shape + (w,), generator=gen,
+                           dtype=torch.uint8)
+    parked = torch.where(matched[..., None], parked, 0)
+    return [x.to(dev) for x in (payload, plen, alive, valid, *fields, parked,
+                                matched, premature, crc_fail, disabled, drop,
+                                park_len)]
+
+
+def merge_payload_bound(args) -> dict:
+    """What ``merge_payload`` must move on ``args``: every output byte
+    written once; of a forwarded packet the restored and carried bytes
+    under its new length read once, of any other packet its whole row; 35
+    bytes of header fields and decisions read and 26 written a packet."""
+    payload, plen, parked = args[0], args[1], args[9]
+    matched, disabled, drop, park_len = args[10], args[13], args[14], args[15]
+    pmax, w = payload.shape[-1], parked.shape[-1]
+    fetch = matched & ~drop
+    shift = torch.where(fetch, park_len, 0).to(torch.int64)
+    end = torch.clamp(plen.to(torch.int64) + shift, 0, pmax)
+    restored = torch.clamp(torch.minimum(shift, end), max=w)
+    carried = torch.clamp(end - shift, min=0)
+    reads = torch.where(disabled | fetch, restored + carried, pmax)
+    n = plen.numel()
+    return dict(bound_bytes=n * pmax + int(reads.sum()) + n * (35 + 26),
+                bound_ops=0)
+
+
+def check_merge_payload(dev) -> int:
+    """Phase 2 for ``merge_payload``: every output against the plain version
+    on the same inputs, exactly, at both benchmark cells' shapes, at a
+    ``pmax`` below W (160 and 352), at pmax 13 (chunks across rows), with
+    two pipe axes and none, on payload and parked rows that are views of
+    wider rows (strided, read in place), and at B = 0 (no launch); the
+    inputs stay as they were (the outputs are new tensors)."""
+    from repro_torch.backend import ref as R
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels import merge_payload as MP
+
+    # a generator of its own, so that phase 2's other draws stay as they were
+    gen = torch.Generator().manual_seed(SEED + 8)
+    err = 0
+    cases = [(label, (p,), b, pmax, w)
+             for label, p, b, pmax, w in MERGE_PAYLOAD_CELLS] + [
+        ("4x64 pmax 100 < W 160", (4,), 64, 100, 160),
+        ("4x64 pmax 300 < W 352", (4,), 64, 300, 352),
+        ("3x37 pmax 13 (chunks across rows)", (3,), 37, 13, 160),
+        ("2x3x50 pmax 1000 W352 (two pipe axes)", (2, 3), 50, 1000, 352),
+        ("no pipe axis, 264 packets pmax 2048", (), 264, 2048, 160),
+        ("8x256 strided rows", (8,), 256, 1462, 176)]
+    for label, lead, b, pmax, w in cases:
+        args = merge_payload_args(gen, lead, b, pmax, w, dev)
+        if "strided" in label:  # rows of 1450 and 160 bytes inside wider
+            args[0], args[9] = args[0][..., 5:1455], args[9][..., 8:168]
+        kept = [args[0].clone(), args[9].clone()]
+        got = once("merge_payload", MP.merge_payload_cuda, *args)
+        want = R.merge_payload(*args)
+        err = max(err, same_all(f"merge_payload {label}", got, want))
+        if not (torch.equal(args[0], kept[0]) and
+                torch.equal(args[9], kept[1])):
+            raise AssertionError(f"merge_payload {label}: an input changed")
+        fwd = args[13] | (args[10] & ~args[14])
+        print(f"merge_payload {label}: exact, one launch; "
+              f"{int(fwd.sum())} of {fwd.numel()} packets forwarded")
+    args = merge_payload_args(gen, (4,), 0, 1450, 160, dev)
+    before = launch_counts()["merge_payload"]
+    got = MP.merge_payload_cuda(*args)
+    if launch_counts()["merge_payload"] != before:
+        raise AssertionError("merge_payload B 0: launched")
+    if [(t.shape, t.dtype) for t in got] != [
+            (t.shape, t.dtype) for t in R.merge_payload(*args)]:
+        raise AssertionError("merge_payload B 0: outputs differ in shape")
+    print("merge_payload 4x0: no launch, empty outputs of the plain "
+          "version's shapes")
+    return err
 
 
 # split_control's shapes on the paths (M 4096): pipes8's, the stream's
@@ -1132,11 +1260,12 @@ def time_kernels(dev) -> dict:
     NAT at capacity 4096 on ``nf_chain_inputs``); maglev, and the NF chain
     FW -> NAT -> LB, at the chain path's 2 pipes x 256 packets with the
     shared 251-entry table and 8 backends; ``split_control`` also at the
-    stream's and the chain's shapes (``SPLIT_SHAPES``)."""
+    stream's and the chain's shapes (``SPLIT_SHAPES``); ``merge_payload``
+    at the benchmark cells' shapes (``MERGE_PAYLOAD_CELLS``)."""
     from repro_torch.backend import ref as R
     from repro_torch.kernels import acl_match, crc16, maglev, payload_fetch
-    from repro_torch.kernels import merge_stage, nf_chain, payload_store
-    from repro_torch.kernels import split_control
+    from repro_torch.kernels import merge_payload, merge_stage, nf_chain
+    from repro_torch.kernels import payload_store, split_control
     from repro_torch.nf.maglev import MaglevLB, build_table
 
     gen = torch.Generator().manual_seed(SEED + 1)
@@ -1227,6 +1356,18 @@ def time_kernels(dev) -> dict:
             ms=device_ms(lambda: nf_chain.nf_chain_cuda(nf_fields, stages)),
             plain_ms=device_ms(lambda: R.nf_chain(nf_fields, stages)),
             library_ms=None, **nf_chain_bound(nf_fields, stages))
+    # Merge's packet transformation at the two benchmark cells' shapes, from
+    # a generator of its own
+    own = torch.Generator().manual_seed(SEED + 9)
+    for key, (_, mp_pipes, mp_b, pmax, mp_w) in zip(
+            ("merge_payload", "merge_payload W352"), MERGE_PAYLOAD_CELLS):
+        args = merge_payload_args(own, (mp_pipes,), mp_b, pmax, mp_w, dev)
+        rows[key] = dict(
+            ms=device_ms(lambda: merge_payload.merge_payload_cuda(*args)),
+            plain_ms=device_ms(lambda: R.merge_payload(*args), reps=5),
+            library_ms=None, shape=f"{mp_pipes} x {mp_b}, pmax {pmax}, "
+            f"W {mp_w}", **merge_payload_bound(args))
+        del args
     for name, r in rows.items():
         bound(r)
         print(f"time {name}: kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f}"
@@ -1331,12 +1472,14 @@ def one_kernel_per_call(dev) -> dict:
     """One traced call of ``payload_store``, ``split_control``,
     ``merge_stage`` and ``nf_chain`` (8 pipes x 256 packets, M 4096, W 160;
     FW -> NAT at capacity 4096; ``split_control`` also at each of
-    ``SPLIT_SHAPES``) and of ``paged_attention`` (engine and
+    ``SPLIT_SHAPES``), of ``merge_payload`` (the first benchmark cell's
+    256 x 256 x 1450, W 160) and of ``paged_attention`` (engine and
     batched shapes), after a warm call, must each run exactly one device
     kernel: no fill, no scratch zeroing, no copy, no second pass.  Returns
     each kernel's duration by the profiler, in ms."""
-    from repro_torch.kernels import (merge_stage, nf_chain, paged_attention,
-                                     payload_store, split_control)
+    from repro_torch.kernels import (merge_payload, merge_stage, nf_chain,
+                                     paged_attention, payload_store,
+                                     split_control)
 
     gen = torch.Generator().manual_seed(SEED + 5)
     t, p, i, e = store_inputs(gen, 8, 256, 4096, 160, dev)
@@ -1347,12 +1490,17 @@ def one_kernel_per_call(dev) -> dict:
     # the same call with every packet dead: the table copies without the
     # walk, whose share of the kernel's duration the difference gives
     dead = (torch.zeros_like(nf_fields[0]),) + nf_fields[1:]
+    _, mp_pipes, mp_b, pmax, mp_w = MERGE_PAYLOAD_CELLS[0]
+    mp_args = merge_payload_args(torch.Generator().manual_seed(SEED + 9),
+                                 (mp_pipes,), mp_b, pmax, mp_w, dev)
     runs = {"payload_store": lambda d: payload_store.payload_store_cuda(
                 t, p, i, e),
             **{f"split_control {label}".strip():
                lambda d, args=args: split_control.split_control_cuda(*args)
                for label, args in sargs.items()},
             "merge_stage": lambda d: merge_stage.merge_stage_cuda(*margs),
+            "merge_payload": lambda d: merge_payload.merge_payload_cuda(
+                *mp_args),
             "nf_chain": lambda d: nf_chain.nf_chain_cuda(nf_fields, stages),
             "nf_chain, every packet dead": lambda d: nf_chain.nf_chain_cuda(
                 dead, stages)}
@@ -1427,8 +1575,8 @@ def path_calls():
 
 def check_launches(label, counts, calls, kernels) -> None:
     """Every kernel of the path launched; ``split_control`` once per Split
-    call, ``merge_stage`` once per Merge call and ``nf_chain`` once per
-    ``Chain.run`` call; the standalone ``crc16`` and ``payload_fetch``
+    call, ``merge_stage`` and ``merge_payload`` once per Merge call and
+    ``nf_chain`` once per ``Chain.run`` call; the standalone ``crc16`` and ``payload_fetch``
     never (their code runs inside the first two), nor ``acl_match`` and
     ``maglev`` (theirs runs inside ``nf_chain``)."""
     missing = [k for k in kernels if counts[k] == 0]
@@ -1436,7 +1584,8 @@ def check_launches(label, counts, calls, kernels) -> None:
         raise AssertionError(f"{label}: kernels never launched on the card: "
                              f"{missing}")
     want = {"split_control": calls["split_fn"],
-            "merge_stage": calls["merge_fn"], "nf_chain": calls["run"],
+            "merge_stage": calls["merge_fn"],
+            "merge_payload": calls["merge_fn"], "nf_chain": calls["run"],
             **dict.fromkeys(INSIDE_CONTROL + INSIDE_CHAIN, 0)}
     wrong = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
     if wrong:
@@ -3617,6 +3766,10 @@ def main() -> int:
             row["launches_mixtral"] = counts["mixtral"][name]
         if name == "nf_chain":
             row["chain"] = {k: times["nf_chain chain"][k] for k in keys}
+        if name == "merge_payload":  # both benchmark cells' shapes
+            row["shape"] = times[name]["shape"]
+            row["cell2"] = {k: times["merge_payload W352"][k]
+                            for k in keys + ("shape",)}
         if name == "split_control":  # the stream's and the chain's shapes
             row["shapes"] = {
                 label: dict(profiler_ms=durations[f"{name} {label}"],

@@ -3,8 +3,9 @@
 Port of ``repro.backend.config``.  A ``BackendConfig`` names which
 implementation of each hot-path primitive the dataplane (and, for
 ``paged_attention``, the serving engine) runs; ``split_control`` and
-``merge_stage`` are Split's and Merge's whole control passes, and
-``nf_chain`` the NF chain's whole header pass:
+``merge_stage`` are Split's and Merge's whole control passes,
+``merge_payload`` Merge's packet transformation, and ``nf_chain`` the NF
+chain's whole header pass:
 
   * ``"ref"``  — the plain PyTorch version (``repro_torch.backend.ref``),
                  on whatever device its tensors lie;
@@ -23,7 +24,7 @@ import dataclasses
 # The registry asserts it implements exactly this set, in this order.
 PRIMITIVES = ("crc16_tag", "acl_match", "maglev_select", "payload_store",
               "payload_fetch", "paged_attention", "split_control",
-              "merge_stage", "nf_chain")
+              "merge_stage", "nf_chain", "merge_payload")
 
 BACKENDS = ("ref", "cuda", "auto")
 

@@ -344,6 +344,60 @@ def merge_stage(table, meta_exp, meta_clk, meta_len, alive, pp_valid,
 
 
 # ---------------------------------------------------------------------------
+# merge_payload — Merge's packet transformation: payload := parked ++
+# carried remainder, and the header fields after the decisions
+# ---------------------------------------------------------------------------
+
+# the PacketBatch fields merge_payload takes and returns, in order, and
+# the decisions of merge_stage it takes after the parked rows
+MERGE_PAYLOAD_FIELDS = ("payload", "payload_len", "alive", "pp_valid",
+                        "pp_enb", "pp_op", "pp_ti", "pp_clk", "pp_crc")
+MERGE_DECISIONS = ("matched", "premature", "crc_fail", "disabled",
+                   "is_drop_op", "park_len")
+
+
+def merge_payload(payload, payload_len, alive, pp_valid, pp_enb, pp_op,
+                  pp_ti, pp_clk, pp_crc, parked, matched, premature,
+                  crc_fail, disabled, is_drop_op, park_len):
+    """Merge's packet transformation after ``merge_stage``'s decisions.
+
+    payload (..., B, pmax) uint8, header fields (..., B), parked (..., B,
+    W) uint8 and the decisions of ``merge_stage`` (..., B).  A forwarded
+    packet (disabled, or matched and not an explicit drop) gets its parked
+    prefix back in front of its payload, zeros past the new length; a
+    dropped or forwarded packet loses its PayloadPark header.  Returns new
+    tensors of ``MERGE_PAYLOAD_FIELDS``, in that order."""
+    pmax, width = payload.shape[-1], parked.shape[-1]
+    fetch = matched & ~is_drop_op
+    shift = torch.where(fetch, park_len, 0)
+    col = torch.arange(pmax, device=shift.device)
+    rem_idx = torch.clamp(col - shift[..., None], 0, pmax - 1)
+    carried = torch.gather(payload, -1, rem_idx.to(torch.int64))
+    if pmax >= width:
+        parked_full = torch.nn.functional.pad(parked, (0, pmax - width))
+    else:
+        parked_full = parked[..., :pmax]
+    new_payload = torch.where(col < shift[..., None], parked_full, carried)
+    new_len = payload_len + shift
+    new_payload = torch.where(col < new_len[..., None], new_payload, 0)
+
+    forwarded = disabled | fetch
+    dropped = premature | crc_fail | is_drop_op
+    gone = forwarded | dropped
+    zero = torch.zeros_like(pp_op)
+    return (torch.where(forwarded[..., None], new_payload,
+                        payload).to(torch.uint8),
+            torch.where(forwarded, new_len, payload_len).to(torch.int32),
+            alive & ~dropped,
+            pp_valid & ~gone,
+            torch.where(gone, zero, pp_enb),
+            torch.where(gone, zero, pp_op),
+            torch.where(gone, zero, pp_ti),
+            torch.where(gone, zero, pp_clk),
+            torch.where(gone, zero, pp_crc))
+
+
+# ---------------------------------------------------------------------------
 # nat_insert / nf_chain — the NF chain's header pass (paper §6.1, §7): the
 # firewall's match, NAT's insert walk and rewrite, the LB's selection and
 # the MAC swap, stage after stage

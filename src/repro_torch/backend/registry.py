@@ -66,6 +66,9 @@ _REGISTRY: dict[str, Primitive] = {
         Primitive("nf_chain", R.nf_chain,
                   _kernel("nf_chain", "nf_chain_cuda"),
                   _kernel("nf_chain", "nf_chain")),
+        Primitive("merge_payload", R.merge_payload,
+                  _kernel("merge_payload", "merge_payload_cuda"),
+                  _kernel("merge_payload", "merge_payload")),
     )
 }
 

@@ -8,7 +8,8 @@ each control pass as one primitive of the backend registry
 CRCs) and ``merge_stage`` (tag check, validation/free pass, gather and
 clear of the parked rows) are one CUDA kernel launch each on the card and
 plain Python loops over packet positions on the CPU; ``payload_store``
-moves Split's rows.  Every tensor may carry leading pipe dimensions, and
+moves Split's rows, and ``merge_payload`` rebuilds Merge's packets (one
+launch on the card).  Every tensor may carry leading pipe dimensions, and
 all pipes advance together.  Index rules follow the reference: a negative
 tag index counts from the end, out-of-range reads clamp and writes drop.
 
@@ -24,6 +25,7 @@ from typing import Any
 import torch
 
 from repro_torch.backend.config import as_config
+from repro_torch.backend.ref import MERGE_DECISIONS, MERGE_PAYLOAD_FIELDS
 from repro_torch.backend.registry import dispatch
 from repro_torch.core import counters as C
 from repro_torch.core.packet import FIELDS, PacketBatch
@@ -304,37 +306,12 @@ def merge_fn(cfg: ParkConfig, state: ParkState, pkts: PacketBatch,
     new_state = ParkState(state.tbl_idx, state.clk, meta_exp, meta_clk,
                           meta_len, ptable, counters)
 
-    # -- packet transformation: payload := parked ++ carried remainder -----
-    shift = torch.where(fetch, d["park_len"], 0)
-    col = torch.arange(cfg.pmax, device=shift.device)
-    rem_idx = torch.clamp(col - shift[..., None], 0, cfg.pmax - 1)
-    carried = torch.gather(pkts.payload, -1, rem_idx.to(torch.int64))
-    if cfg.pmax >= cfg.park_bytes:
-        parked_full = torch.nn.functional.pad(
-            parked, (0, cfg.pmax - cfg.park_bytes))
-    else:
-        parked_full = parked[..., : cfg.pmax]
-    new_payload = torch.where(col < shift[..., None], parked_full, carried)
-    new_len = pkts.payload_len + shift
-    new_payload = torch.where(col < new_len[..., None], new_payload, 0)
-
-    forwarded = d["disabled"] | fetch
-    dropped = d["premature"] | d["crc_fail"] | d["is_drop_op"]
-    gone = forwarded | dropped
-    zero = torch.zeros_like(pkts.pp_op)
-    out = pkts.replace(
-        payload=torch.where(forwarded[..., None], new_payload,
-                            pkts.payload).to(torch.uint8),
-        payload_len=torch.where(forwarded, new_len,
-                                pkts.payload_len).to(torch.int32),
-        alive=pkts.alive & ~dropped,
-        pp_valid=pkts.pp_valid & ~gone,
-        pp_enb=torch.where(gone, zero, pkts.pp_enb),
-        pp_op=torch.where(gone, zero, pkts.pp_op),
-        pp_ti=torch.where(gone, zero, pkts.pp_ti),
-        pp_clk=torch.where(gone, zero, pkts.pp_clk),
-        pp_crc=torch.where(gone, zero, pkts.pp_crc),
-    )
+    # -- packet transformation: payload := parked ++ carried remainder, and
+    # the header fields after the decisions: one call, to new tensors ------
+    out = dispatch("merge_payload", backend)(
+        *(getattr(pkts, n) for n in MERGE_PAYLOAD_FIELDS), parked,
+        *(d[k] for k in MERGE_DECISIONS))
+    out = pkts.replace(**dict(zip(MERGE_PAYLOAD_FIELDS, out)))
     return new_state, out
 
 

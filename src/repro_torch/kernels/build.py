@@ -29,7 +29,8 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("crc16.cu", "acl_match.cu", "payload_store.cu",
            "payload_fetch.cu", "maglev.cu", "paged_attention.cu",
-           "split_control.cu", "merge_stage.cu", "nf_chain.cu")
+           "split_control.cu", "merge_stage.cu", "nf_chain.cu",
+           "merge_payload.cu")
 HEADERS = ("crc16.cuh", "meta_tables.cuh", "payload_fetch.cuh",
            "acl_match.cuh", "maglev.cuh")  # included by the sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,6 +54,7 @@ SIGNATURES = {
     "pp_merge_stage": (_vp,) * 21 + (_i64, _i64, _i64, _i64, _i32, _i64,
                                      _i64, _vp, _vp),
     "pp_nf_chain": (_vp,) * 19 + (_i32, _i64, _i64, _i64, _vp),
+    "pp_merge_payload": (_vp,) * 25 + (_i64,) * 5 + (_vp,),
 }
 
 

@@ -539,7 +539,8 @@ def test_rpl001_reads_every_primitive_from_the_registry():
     assert {"split_control", "merge_stage", "nf_chain",
             "paged_decode_attention"} <= names
     assert {"crc16_bytes", "tag_bytes", "maglev_hash5"} <= names
-    assert sum(n.endswith("_cuda") for n in names) == 9
+    assert {"merge_payload", "merge_payload_cuda"} <= names
+    assert sum(n.endswith("_cuda") for n in names) == 10
 
 
 def test_rpl002_sees_the_counters_and_telemetry_fields(port):
@@ -563,7 +564,7 @@ def test_rpl005_every_hot_root_resolves(port):
     for rel, qual in hostsync.HOT_ROOTS:
         assert (rel, qual.split(".")[-1]) in names
     kernel_modules = {f.path for f, _ in hot if "/kernels/" in f.path}
-    assert len(kernel_modules) == 9
+    assert len(kernel_modules) == 10
     # the closure reaches helpers called by bare name and nested bodies
     assert ("switchsim/engine.py", "recirc_select") in names
     assert ("core/park.py", "_payload_shift") in names
@@ -572,11 +573,11 @@ def test_rpl005_every_hot_root_resolves(port):
 
 def test_rpl006_pairs_every_primitive_and_signature(port):
     entries = registry_entries(port.load(PKG / "backend" / "registry.py"))
-    assert len(entries) == 9
+    assert len(entries) == 10
     table = kernelhygiene.signature_table(port.load(PKG / "kernels" /
                                                     "build.py"))
     protos = kernelhygiene.c_prototypes(PKG / "csrc")
-    assert len(table) == len(protos) == 9
+    assert len(table) == len(protos) == 10
     for name, (types, _) in table.items():
         assert types == protos[name][0], name
     assert {e.cuda for e in entries} == {

@@ -188,6 +188,14 @@ def _cpu_args(name):
                           for _ in range(3)),
                         torch.ones(8, dtype=torch.bool),
                         torch.ones(8, dtype=torch.bool), z + 1, z, z, z, z),
+        # every packet matched, a 4-byte prefix put back before 8 bytes
+        "merge_payload": (torch.ones(8, 16, dtype=torch.uint8), z + 8,
+                          *(torch.ones(8, dtype=torch.bool)
+                            for _ in range(2)), z, z, z, z, z,
+                          torch.full((8, 16), 2, dtype=torch.uint8),
+                          torch.ones(8, dtype=torch.bool),
+                          *(torch.zeros(8, dtype=torch.bool)
+                            for _ in range(4)), z + 4),
     }[name]
 
 
@@ -206,7 +214,8 @@ def _leaves(out):
 
 @pytest.mark.parametrize("name", ["crc16_tag", "acl_match", "maglev_select",
                                   "payload_store", "payload_fetch",
-                                  "split_control", "merge_stage"])
+                                  "split_control", "merge_stage",
+                                  "merge_payload"])
 def test_cuda_backend_raises_on_cpu_tensors(name):
     before = launch_counts()
     with pytest.raises((RuntimeError, NotImplementedError)):
@@ -217,7 +226,8 @@ def test_cuda_backend_raises_on_cpu_tensors(name):
 
 @pytest.mark.parametrize("name", ["crc16_tag", "acl_match", "maglev_select",
                                   "payload_store", "payload_fetch",
-                                  "split_control", "merge_stage"])
+                                  "split_control", "merge_stage",
+                                  "merge_payload"])
 def test_auto_backend_runs_plain_version_on_cpu(name):
     args = _cpu_args(name)
     got = _leaves(tdispatch(name, "auto")(*map(_clone, args)))
